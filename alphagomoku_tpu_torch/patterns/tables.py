@@ -1,0 +1,208 @@
+"""Pattern DSL and PatternType / ThreatType codes (numpy, torch-free).
+
+A copy of the rule definitions of the reference package's
+`patterns/tables.py`: the matching-rule mini-DSL (`_parse`, `_wrap_*`,
+`_classifier_rules`, `_PRIORITY`) and the `PT_*` / `TT_*` codes.  The port
+classifies windows with bit math compiled from these rules
+(`patterns/bitwise.py`), so the 4^10 lookup-table build is not copied and
+nothing is cached on disk.
+
+Rule semantics replicate the reference's PatternClassifier
+(reference: src/patterns/PatternClassifier.cpp:16-75, :182-327).
+"""
+
+from __future__ import annotations
+
+from ..game.types import (
+    NONE,
+    CROSS,
+    CIRCLE,
+    ILLEGAL,
+    GameRules,
+)
+
+# ---------------------------------------------------------------------------
+# PatternType / ThreatType codes (reference: patterns/PatternTable.hpp:22-32,
+# patterns/ThreatTable.hpp:18-30)
+# ---------------------------------------------------------------------------
+
+PT_NONE = 0
+PT_HALF_OPEN_3 = 1
+PT_OPEN_3 = 2
+PT_HALF_OPEN_4 = 3
+PT_OPEN_4 = 4
+PT_DOUBLE_4 = 5
+PT_FIVE = 6
+PT_OVERLINE = 7
+
+TT_NONE = 0
+TT_HALF_OPEN_3 = 1
+TT_OPEN_3 = 2
+TT_FORK_3x3 = 3
+TT_HALF_OPEN_4 = 4
+TT_FORK_4x3 = 5
+TT_FORK_4x4 = 6
+TT_OPEN_4 = 7
+TT_FIVE = 8
+TT_OVERLINE = 9
+
+PATTERN_LENGTH = 11
+CENTER = PATTERN_LENGTH // 2
+NUM_PATTERNS = 4**10  # center-free keys
+
+# ---------------------------------------------------------------------------
+# Matching-rule mini-DSL
+#
+# A rule is a sequence of 4-bit masks (bit s set => sign s allowed at that
+# offset); a window matches if the rule matches at ANY offset inside it.  Same
+# semantics as the reference DSL (src/patterns/PatternClassifier.cpp:16-75)
+# but composed with list operations instead of string rewriting.
+# ---------------------------------------------------------------------------
+
+_ANY = 0b1111
+
+
+def _parse(rule: str) -> list[int]:
+    """Parse a rule string like "_XXXX[not O]" into allowed-sign masks."""
+    masks: list[int] = []
+    i = 0
+    while i < len(rule):
+        c = rule[i]
+        if c in "_XO|":
+            masks.append(1 << {"_": NONE, "X": CROSS, "O": CIRCLE, "|": ILLEGAL}[c])
+            i += 1
+        elif c == "[":
+            j = rule.index("]", i)
+            body = rule[i + 1 : j]
+            if body == "any":
+                masks.append(_ANY)
+            elif body.startswith("not "):
+                m = _ANY
+                for ch in body[4:]:
+                    m &= ~(1 << {"_": NONE, "X": CROSS, "O": CIRCLE, "|": ILLEGAL}[ch])
+                masks.append(m & _ANY)
+            else:
+                m = 0
+                for ch in body:
+                    m |= 1 << {"_": NONE, "X": CROSS, "O": CIRCLE, "|": ILLEGAL}[ch]
+                masks.append(m)
+            i = j + 1
+        else:
+            raise ValueError(f"bad rule {rule!r}")
+    return masks
+
+
+def _wrap_and(rules: list[list[int]], prefix: str, postfix: str) -> list[list[int]]:
+    """prefix + rule + postfix for every rule
+    (reference: PatternClassifier::modifyPatternsAND)."""
+    p, q = _parse(prefix), _parse(postfix)
+    return [p + r + q for r in rules]
+
+
+def _wrap_or3(rules: list[list[int]], prefix: str, common: str, postfix: str) -> list[list[int]]:
+    """(prefix + rule + common) OR (common + rule + postfix)
+    (reference: PatternClassifier::modifyPatternsOR 3-arg form)."""
+    p, q, c = _parse(prefix), _parse(postfix), _parse(common)
+    out = []
+    for r in rules:
+        out.append(p + r + c)
+        out.append(c + r + q)
+    return out
+
+
+def _classifier_rules(kind: str, rules: GameRules, sign: int) -> list[list[int]]:
+    """Matching rules for one (classifier, rule-variant, sign).
+
+    The base shapes and per-variant end-condition wrappers replicate the
+    reference's rule definitions exactly
+    (reference: src/patterns/PatternClassifier.cpp:182-327).
+    """
+    X = "X" if sign == CROSS else "O"
+    O = "O" if sign == CROSS else "X"
+    not_own = f"[not {X}]"
+    not_opp = f"[not {O}]"
+    is_black = sign == CROSS  # renju restrictions only apply to black
+
+    def base(shapes: list[str]) -> list[list[int]]:
+        return [_parse(s.replace("X", X)) for s in shapes]
+
+    if kind == "overline":
+        return base(["XXXXXX"])
+
+    if kind == "five":
+        out = base(["XXXXX"])
+        if rules == GameRules.STANDARD or (rules == GameRules.RENJU and is_black):
+            out = _wrap_and(out, not_own, not_own)
+        elif rules == GameRules.CARO5:
+            out = _wrap_or3(out, "[_|]", not_own, "[_|]")
+        elif rules == GameRules.CARO6:
+            out = _wrap_or3(out, not_opp, "[any]", not_opp)
+        return out
+
+    if kind == "open_four":
+        out = base(["_XXXX_"])
+        if rules == GameRules.STANDARD or (rules == GameRules.RENJU and is_black):
+            out = _wrap_and(out, not_own, not_own)
+        elif rules == GameRules.CARO6:
+            out = _wrap_and(out, not_opp, not_opp)
+        if rules == GameRules.CARO5:
+            out = _wrap_and(out, "[_|]", "[_|]")
+        return out
+
+    if kind == "double_four":
+        out = base(["X_XXX_X", "XX_XX_XX", "XXX_X_XXX"])
+        if rules == GameRules.STANDARD or (rules == GameRules.RENJU and is_black):
+            out = _wrap_and(out, not_own, not_own)
+        elif rules == GameRules.CARO6:
+            out = _wrap_and(out, not_opp, not_opp)
+        if rules == GameRules.CARO5:
+            out = _wrap_and(out, "[_|]", "[_|]")
+        return out
+
+    if kind == "half_open_four":
+        out = base(["_XXXX", "X_XXX", "XX_XX", "XXX_X", "XXXX_"])
+        if rules == GameRules.STANDARD or (rules == GameRules.RENJU and is_black):
+            out = _wrap_and(out, not_own, not_own)
+        elif rules == GameRules.CARO5:
+            out = _wrap_or3(out, "[_|]", not_own, "[_|]")
+        elif rules == GameRules.CARO6:
+            out = _wrap_or3(out, not_opp, "[any]", not_opp)
+        return out
+
+    if kind == "open_three":
+        out = base(["_XXX__", "_XX_X_", "_X_XX_", "__XXX_"])
+        if rules == GameRules.STANDARD or (rules == GameRules.RENJU and is_black):
+            out = _wrap_and(out, not_own, not_own)
+        elif rules == GameRules.CARO6:
+            out = _wrap_and(out, not_opp, not_opp)
+        if rules == GameRules.CARO5:
+            out = _wrap_and(out, "[_|]", "[_|]")
+        return out
+
+    if kind == "half_open_three":
+        out = base(
+            ["__XXX", "_X_XX", "_XX_X", "_XXX_", "X__XX", "X_X_X", "X_XX_", "XX__X", "XX_X_", "XXX__"]
+        )
+        if rules == GameRules.STANDARD or (rules == GameRules.RENJU and is_black):
+            out = _wrap_and(out, not_own, not_own)
+        elif rules == GameRules.CARO5:
+            out = _wrap_or3(out, "[_|]", not_own, "[_|]")
+        elif rules == GameRules.CARO6:
+            out = _wrap_or3(out, not_opp, "[any]", not_opp)
+        return out
+
+    raise ValueError(kind)
+
+
+# Priority order of classifiers (reference: PatternTable.cpp:49-66
+# ThreatClassifier::operator(): five > overline > open4 > double4 >
+# half-open4 > open3 > half-open3).
+_PRIORITY = [
+    ("five", PT_FIVE),
+    ("overline", PT_OVERLINE),
+    ("open_four", PT_OPEN_4),
+    ("double_four", PT_DOUBLE_4),
+    ("half_open_four", PT_HALF_OPEN_4),
+    ("open_three", PT_OPEN_3),
+    ("half_open_three", PT_HALF_OPEN_3),
+]
