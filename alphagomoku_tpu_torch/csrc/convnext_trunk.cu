@@ -1,5 +1,7 @@
-// Fused ConvNext trunk for Hopper: all L blocks of the 64-filter trunk in
-// one launch, each board's activation kept in shared memory throughout.
+// Fused ConvNext trunk for Hopper: all L blocks of the trunk in one launch,
+// each board's activation kept in shared memory throughout.  One kernel,
+// templated on the width C and built for C = 64 (the 6x64 flagship) and
+// C = 128 (the 8x128 network).
 //
 // Replaces the Pallas TPU kernel `_trunk_kernel` of
 // alphagomoku_tpu/ops/convnext_fused.py (wrapper `fused_trunk`).  Per
@@ -12,23 +14,32 @@
 // pointwise layer, after the residual add, after the mean, after each SE
 // dense and after the channel scale.
 //
-// What bounds it on the H100: operations.  At B = 1280, C = 64, L = 6 the
-// trunk needs about 10.8 GFLOP of depthwise work (CUDA cores, f32) and
-// about 28 GFLOP of pointwise and SE products (tensor-core eligible), but
-// moves only about 74 MB of activation: the least time is about 0.19 ms,
-// set by the depthwise at 67 TFLOP/s.
+// What bounds it on the H100: operations.  At B = 1280 the trunk moves
+// little (the activation crosses HBM once each way: about 74 MB at C = 64,
+// L = 6, and 147 MB at C = 128, L = 8) but needs 2*49*H*W*C*B*L FLOP of
+// f32 depthwise work on CUDA cores (10.8 GFLOP at C = 64, 28.9 GFLOP at
+// C = 128) and about 4*H*W*C*C*B*L FLOP of pointwise and SE products that
+// tensor cores could take (28 and 152 GFLOP).  The least time is set by
+// the depthwise at 67 TFLOP/s: about 0.19 ms at C = 64 and 0.585 ms at
+// C = 128.  The products run on CUDA cores here, where at C = 128 they are
+// five times the depthwise's work: they, not the bound's depthwise, set
+// this kernel's time.
 //
-// Design (simple first): one CTA of 8 warps per board.  The zero-padded
-// 21x21x64 bf16 activation (56 KB), the two pointwise intermediates
-// (29 KB each) and one layer's weights (40 KB) live in shared memory, so
-// the activation crosses HBM once in and once out for all L blocks.  A
-// lane owns a pair of channels (bf16x2); the depthwise holds its 49 tap
-// pairs in registers and a warp walks cells; the pointwise products run on
-// CUDA cores with f32 accumulators, four cells per warp pass so that each
-// weight pair read serves four cells; the SE reduction is done in-block.
+// Layout: one CTA of 8 warps per board.  A block gets 227 KB of shared
+// memory, and a zero-padded activation with both pointwise intermediates
+// and four CxC matrices would need about 372 KB at C = 128.  So the
+// activation is kept unpadded ([H*W][C] bf16, 57.6 KB at C = 128; the
+// depthwise bounds-checks its taps), the depthwise + BN output has a
+// second such buffer, and the relu output lives only as a tile of 5 cells
+// per warp: a warp takes 5 cells through both pointwise products and
+// writes the residual back into the activation in place, which is safe
+// because a cell's product reads only the depthwise buffer.  Only w1 and
+// w2 are staged; the SE dense layers read their weights from L2.  212 KB
+// in all at C = 128, 90 KB at C = 64.  The depthwise gives each thread one
+// channel pair and a strip of 5 cells of a row, so that each input read
+// serves up to 7 taps; the pointwise gives each lane C/64 output channel
+// pairs and reads 8 input channels per 16-byte load.
 // Tensor cores (mma/wgmma), TMA and multi-board tiles are left for later.
-// C is fixed at 64: C = 128 would need more than the 227 KB of shared
-// memory a block can have in this layout, and the wrapper rejects it.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -36,14 +47,11 @@
 
 namespace {
 
-constexpr int kC = 64;            // channels
-constexpr int kC2 = kC / 2;       // channel pairs == lanes of a warp
 constexpr int kK = 7;             // depthwise kernel
 constexpr int kR = kK / 2;        // its radius
 constexpr int kTaps = kK * kK;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kCellsPerPass = 4;  // cells per warp pass of the pointwise loop
 
 using bf2 = __nv_bfloat162;
 
@@ -51,240 +59,282 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-struct Smem {
-  bf2* xpad;   // [(H+6)*(W+6)][kC2] zero-bordered activation
-  bf2* ybuf;   // [HW][kC2] depthwise + BN output
-  bf2* y1buf;  // [HW][kC2] first pointwise output
-  bf2* dw;     // [49][kC2]
-  bf2* w1;     // [kC][kC2]  (input channel, output channel pair)
-  bf2* w2;
-  bf2* sw1;
-  bf2* sw2;
-  float* vec;  // bn_s, bn_t, b1, b2, sb1, sb2: [6][kC]
-  float* red;  // [kWarps][kC] partial channel sums
-  float* se;   // z, h1, g: [3][kC]
-};
-
-inline size_t smem_bytes(int H, int W) {
-  const size_t pad = size_t(H + 2 * kR) * (W + 2 * kR) * kC2;
-  const size_t hw = size_t(H) * W * kC2;
-  return (pad + 2 * hw + kTaps * kC2 + 4 * kC * kC2) * sizeof(bf2) +
-         (6 * kC + kWarps * kC + 3 * kC) * sizeof(float);
-}
-
-__device__ inline Smem carve(unsigned char* base, int H, int W) {
-  Smem s;
-  bf2* p = reinterpret_cast<bf2*>(base);
-  s.xpad = p;  p += size_t(H + 2 * kR) * (W + 2 * kR) * kC2;
-  s.ybuf = p;  p += size_t(H) * W * kC2;
-  s.y1buf = p; p += size_t(H) * W * kC2;
-  s.dw = p;    p += kTaps * kC2;
-  s.w1 = p;    p += kC * kC2;
-  s.w2 = p;    p += kC * kC2;
-  s.sw1 = p;   p += kC * kC2;
-  s.sw2 = p;   p += kC * kC2;
-  float* f = reinterpret_cast<float*>(p);
-  s.vec = f;   f += 6 * kC;
-  s.red = f;   f += kWarps * kC;
-  s.se = f;
-  return s;
-}
-
 struct Weights {
   const __nv_bfloat16 *dw, *w1, *w2, *sw1, *sw2;
   const float *bn_s, *bn_t, *b1, *b2, *sb1, *sb2;
 };
 
-// out[cell][co] = sum_ci in[cell][ci] * w[ci][co], one lane per output
-// channel pair, kCellsPerPass cells per warp pass.  `epilogue(cell, acc0,
-// acc1)` consumes the lane's two f32 sums.
-template <typename Epilogue>
-__device__ __forceinline__ void pointwise(const bf2* in, const bf2* w, int HW, int warp,
-                                          int lane, Epilogue epilogue) {
-  for (int g = warp * kCellsPerPass; g < HW; g += kWarps * kCellsPerPass) {
-    float acc[kCellsPerPass][2];
+constexpr int kCells = 5;  // cells a warp takes through the pointwise at once
+constexpr int kStrip = 5;  // depthwise output cells per thread pass (one row)
+
+template <int C>
+struct Trunk {
+  static constexpr int C2 = C / 2;     // channel pairs
+  static constexpr int C8 = C / 8;     // 16-byte vectors per cell
+  static constexpr int PPL = C2 / 32;  // output pairs per lane in the pointwise
+  static constexpr int kGroups = kThreads / C2;  // depthwise thread groups
+  static_assert(C2 % 32 == 0 && kThreads % C2 == 0, "C must be a multiple of 64, at most 512");
+
+  // dynamic shared memory of one CTA
+  static size_t bytes(int H, int W) {
+    const size_t hw = size_t(H) * W;
+    return (2 * hw * C2 + size_t(kWarps) * kCells * C2 + kTaps * C2 + 2 * size_t(C) * C2) *
+               sizeof(bf2) +
+           (6 * C + kWarps * C + 3 * C) * sizeof(float);
+  }
+};
+
+__device__ __forceinline__ void unpack8(const uint4& u, float* a) {
+  const bf2* p = reinterpret_cast<const bf2*>(&u);
 #pragma unroll
-    for (int j = 0; j < kCellsPerPass; ++j) acc[j][0] = acc[j][1] = 0.f;
-#pragma unroll 4
-    for (int ci2 = 0; ci2 < kC2; ++ci2) {
-      const float2 wa = __bfloat1622float2(w[(2 * ci2) * kC2 + lane]);
-      const float2 wb = __bfloat1622float2(w[(2 * ci2 + 1) * kC2 + lane]);
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(p[i]);
+    a[2 * i] = f.x;
+    a[2 * i + 1] = f.y;
+  }
+}
+
+// acc[j][2k..2k+1] = sum_ci in[cell j][ci] * w[ci][pair lane + 32k], for
+// the kCells cells whose rows start at `in` (row stride C bf16; rows
+// past `ncells` repeat the last valid row).
+template <int C>
+__device__ __forceinline__ void product(const bf2* in, int ncells, const bf2* w, int lane,
+                                        float (&acc)[kCells][2 * Trunk<C>::PPL]) {
+  constexpr int C2 = Trunk<C>::C2, C8 = Trunk<C>::C8, PPL = Trunk<C>::PPL;
 #pragma unroll
-      for (int j = 0; j < kCellsPerPass; ++j) {
-        const int cell = min(g + j, HW - 1);
-        const float2 a = __bfloat1622float2(in[cell * kC2 + ci2]);
-        acc[j][0] = fmaf(a.y, wb.x, fmaf(a.x, wa.x, acc[j][0]));
-        acc[j][1] = fmaf(a.y, wb.y, fmaf(a.x, wa.y, acc[j][1]));
-      }
-    }
+  for (int j = 0; j < kCells; ++j)
 #pragma unroll
-    for (int j = 0; j < kCellsPerPass; ++j) {
-      if (g + j < HW) epilogue(g + j, acc[j][0], acc[j][1]);
+    for (int k = 0; k < 2 * PPL; ++k) acc[j][k] = 0.f;
+  const uint4* in4 = reinterpret_cast<const uint4*>(in);
+#pragma unroll 1
+  for (int c8 = 0; c8 < C8; ++c8) {
+    float a[kCells][8];
+#pragma unroll
+    for (int j = 0; j < kCells; ++j) unpack8(in4[min(j, ncells - 1) * C8 + c8], a[j]);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int ci = c8 * 8 + i;
+      float2 wv[PPL];
+#pragma unroll
+      for (int k = 0; k < PPL; ++k) wv[k] = __bfloat1622float2(w[ci * C2 + lane + 32 * k]);
+#pragma unroll
+      for (int j = 0; j < kCells; ++j)
+#pragma unroll
+        for (int k = 0; k < PPL; ++k) {
+          acc[j][2 * k] = fmaf(a[j][i], wv[k].x, acc[j][2 * k]);
+          acc[j][2 * k + 1] = fmaf(a[j][i], wv[k].y, acc[j][2 * k + 1]);
+        }
     }
   }
 }
 
-// The SE dense layer for output channel `co`: sum_ci in[ci] * w[ci][co].
-__device__ __forceinline__ float dense(const float* in, const bf2* w, int co) {
-  const __nv_bfloat16* ws = reinterpret_cast<const __nv_bfloat16*>(w);
+// The SE dense layer for output channel `co`, its weights read from
+// global memory (L2): sum_ci in[ci] * w[ci][co].
+template <int C>
+__device__ __forceinline__ float dense(const float* in, const __nv_bfloat16* w, int co) {
   float acc = 0.f;
 #pragma unroll 8
-  for (int ci = 0; ci < kC; ++ci) acc = fmaf(in[ci], __bfloat162float(ws[ci * kC + co]), acc);
+  for (int ci = 0; ci < C; ++ci) acc = fmaf(in[ci], __bfloat162float(w[ci * C + co]), acc);
   return acc;
 }
 
+template <int C>
 __global__ void __launch_bounds__(kThreads, 1)
 convnext_trunk_kernel(const __nv_bfloat16* __restrict__ x, Weights wt,
                       __nv_bfloat16* __restrict__ out, int H, int W, int L) {
+  using G = Trunk<C>;
+  constexpr int C2 = G::C2, C8 = G::C8, PPL = G::PPL;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem s = carve(smem_raw, H, W);
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int HW = H * W;
-  const int PW = W + 2 * kR;
   const int board = blockIdx.x;
 
-  // load the board (16-byte vectors, 8 per cell) into the zero-bordered
-  // activation buffer
+  bf2* act = reinterpret_cast<bf2*>(smem_raw);    // [HW][C2] activation
+  bf2* ybuf = act + size_t(HW) * C2;              // [HW][C2] depthwise + BN
+  bf2* tile = ybuf + size_t(HW) * C2;             // [kWarps][kCells][C2] relu
+  bf2* dw = tile + kWarps * kCells * C2;      // [49][C2]
+  bf2* w1 = dw + kTaps * C2;                      // [C][C2]
+  bf2* w2 = w1 + C * C2;
+  float* vec = reinterpret_cast<float*>(w2 + C * C2);  // bn_s, bn_t, b1, b2, sb1, sb2
+  float* red = vec + 6 * C;                       // [kWarps][C]
+  float* z = red + kWarps * C;
+  float* h1 = z + C;
+  float* gate = h1 + C;
+  const float* bn_s = vec;
+  const float* bn_t = vec + C;
+  const float* b1 = vec + 2 * C;
+  const float* b2 = vec + 3 * C;
+  const float* sb1 = vec + 4 * C;
+  const float* sb2 = vec + 5 * C;
+
   {
-    const uint4* src = reinterpret_cast<const uint4*>(x + size_t(board) * HW * kC);
-    uint4* dst = reinterpret_cast<uint4*>(s.xpad);
-    const int padded = (H + 2 * kR) * PW;
-    for (int i = tid; i < padded * (kC / 8); i += kThreads) {
-      const int pc = i / (kC / 8), q = i % (kC / 8);
-      const int r = pc / PW - kR, c = pc % PW - kR;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (r >= 0 && r < H && c >= 0 && c < W) v = src[(r * W + c) * (kC / 8) + q];
-      dst[i] = v;
-    }
+    const uint4* src = reinterpret_cast<const uint4*>(x + size_t(board) * HW * C);
+    uint4* dst = reinterpret_cast<uint4*>(act);
+    for (int i = tid; i < HW * C8; i += kThreads) dst[i] = src[i];
   }
 
-  float* bn_s = s.vec;
-  float* bn_t = s.vec + kC;
-  float* b1 = s.vec + 2 * kC;
-  float* b2 = s.vec + 3 * kC;
-  float* sb1 = s.vec + 4 * kC;
-  float* sb2 = s.vec + 5 * kC;
-  float* z = s.se;
-  float* h1 = s.se + kC;
-  float* gate = s.se + 2 * kC;
-
   for (int l = 0; l < L; ++l) {
-    // stage this layer's weights
+    // stage this layer's taps, pointwise weights and vectors
     {
-      const bf2* gdw = reinterpret_cast<const bf2*>(wt.dw + size_t(l) * kTaps * kC);
-      for (int i = tid; i < kTaps * kC2; i += kThreads) s.dw[i] = gdw[i];
-      const size_t mat = size_t(l) * kC * kC;
-      const bf2* g1 = reinterpret_cast<const bf2*>(wt.w1 + mat);
-      const bf2* g2 = reinterpret_cast<const bf2*>(wt.w2 + mat);
-      const bf2* g3 = reinterpret_cast<const bf2*>(wt.sw1 + mat);
-      const bf2* g4 = reinterpret_cast<const bf2*>(wt.sw2 + mat);
-      for (int i = tid; i < kC * kC2; i += kThreads) {
-        s.w1[i] = g1[i];
-        s.w2[i] = g2[i];
-        s.sw1[i] = g3[i];
-        s.sw2[i] = g4[i];
+      const uint4* gdw = reinterpret_cast<const uint4*>(wt.dw + size_t(l) * kTaps * C);
+      for (int i = tid; i < kTaps * C8; i += kThreads) reinterpret_cast<uint4*>(dw)[i] = gdw[i];
+      const size_t mat = size_t(l) * C * C;
+      const uint4* g1 = reinterpret_cast<const uint4*>(wt.w1 + mat);
+      const uint4* g2 = reinterpret_cast<const uint4*>(wt.w2 + mat);
+      for (int i = tid; i < C * C8; i += kThreads) {
+        reinterpret_cast<uint4*>(w1)[i] = g1[i];
+        reinterpret_cast<uint4*>(w2)[i] = g2[i];
       }
-      for (int i = tid; i < kC; i += kThreads) {
-        const size_t v = size_t(l) * kC + i;
-        bn_s[i] = wt.bn_s[v];
-        bn_t[i] = wt.bn_t[v];
-        b1[i] = wt.b1[v];
-        b2[i] = wt.b2[v];
-        sb1[i] = wt.sb1[v];
-        sb2[i] = wt.sb2[v];
+      for (int i = tid; i < C; i += kThreads) {
+        const size_t v = size_t(l) * C + i;
+        vec[i] = wt.bn_s[v];
+        vec[C + i] = wt.bn_t[v];
+        vec[2 * C + i] = wt.b1[v];
+        vec[3 * C + i] = wt.b2[v];
+        vec[4 * C + i] = wt.sb1[v];
+        vec[5 * C + i] = wt.sb2[v];
       }
     }
     __syncthreads();
 
-    // depthwise 7x7 + folded BN -> ybuf (bf16)
+    // depthwise 7x7 + folded BN -> ybuf (bf16): thread = (pair p, group g),
+    // a strip of kStrip cells of one row per pass
     {
+      const int p = tid % C2, g = tid / C2;
       float2 taps[kTaps];
 #pragma unroll
-      for (int t = 0; t < kTaps; ++t) taps[t] = __bfloat1622float2(s.dw[t * kC2 + lane]);
-      const float s0 = bn_s[2 * lane], s1 = bn_s[2 * lane + 1];
-      const float t0 = bn_t[2 * lane], t1 = bn_t[2 * lane + 1];
-      for (int cell = warp; cell < HW; cell += kWarps) {
-        const int r = cell / W, c = cell % W;
-        float a0 = 0.f, a1 = 0.f;
+      for (int t = 0; t < kTaps; ++t) taps[t] = __bfloat1622float2(dw[t * C2 + p]);
+      const float s0 = bn_s[2 * p], s1 = bn_s[2 * p + 1];
+      const float t0 = bn_t[2 * p], t1 = bn_t[2 * p + 1];
+      const int per_row = (W + kStrip - 1) / kStrip;
+      for (int s = g; s < H * per_row; s += G::kGroups) {
+        const int r = s / per_row, c0 = (s % per_row) * kStrip;
+        float2 acc[kStrip];
+#pragma unroll
+        for (int o = 0; o < kStrip; ++o) acc[o] = make_float2(0.f, 0.f);
 #pragma unroll
         for (int di = 0; di < kK; ++di) {
+          const int rr = r + di - kR;
+          if (rr < 0 || rr >= H) continue;
+          float2 v[kStrip + kK - 1];
 #pragma unroll
-          for (int dj = 0; dj < kK; ++dj) {
-            const float2 v = __bfloat1622float2(s.xpad[((r + di) * PW + c + dj) * kC2 + lane]);
-            a0 = fmaf(v.x, taps[di * kK + dj].x, a0);
-            a1 = fmaf(v.y, taps[di * kK + dj].y, a1);
+          for (int j = 0; j < kStrip + kK - 1; ++j) {
+            const int cc = c0 + j - kR;
+            v[j] = (cc >= 0 && cc < W) ? __bfloat1622float2(act[(rr * W + cc) * C2 + p])
+                                       : make_float2(0.f, 0.f);
           }
+#pragma unroll
+          for (int o = 0; o < kStrip; ++o)
+#pragma unroll
+            for (int dj = 0; dj < kK; ++dj) {
+              acc[o].x = fmaf(v[o + dj].x, taps[di * kK + dj].x, acc[o].x);
+              acc[o].y = fmaf(v[o + dj].y, taps[di * kK + dj].y, acc[o].y);
+            }
         }
-        s.ybuf[cell * kC2 + lane] = __floats2bfloat162_rn(a0 * s0 + t0, a1 * s1 + t1);
+#pragma unroll
+        for (int o = 0; o < kStrip; ++o) {
+          if (c0 + o < W)
+            ybuf[(r * W + c0 + o) * C2 + p] =
+                __floats2bfloat162_rn(acc[o].x * s0 + t0, acc[o].y * s1 + t1);
+        }
       }
     }
     __syncthreads();
 
-    // pointwise expand: relu(y @ w1 + b1) -> y1buf (bf16)
-    pointwise(s.ybuf, s.w1, HW, warp, lane, [&](int cell, float acc0, float acc1) {
-      s.y1buf[cell * kC2 + lane] = __floats2bfloat162_rn(
-          fmaxf(acc0 + b1[2 * lane], 0.f), fmaxf(acc1 + b1[2 * lane + 1], 0.f));
-    });
-    __syncthreads();
-
-    // pointwise project + bias (bf16), residual add (bf16) in place, and
-    // the per-channel sums of the result for the SE mean
-    float sum0 = 0.f, sum1 = 0.f;
-    pointwise(s.y1buf, s.w2, HW, warp, lane, [&](int cell, float acc0, float acc1) {
-      const int r = cell / W, c = cell % W;
-      bf2* xp = &s.xpad[((r + kR) * PW + c + kR) * kC2 + lane];
-      const float2 xo = __bfloat1622float2(*xp);
-      const float y0 = round_bf16(acc0 + b2[2 * lane]);
-      const float y1 = round_bf16(acc1 + b2[2 * lane + 1]);
-      const bf2 xr = __floats2bfloat162_rn(y0 + xo.x, y1 + xo.y);
-      *xp = xr;
-      const float2 xf = __bfloat1622float2(xr);
-      sum0 += xf.x;
-      sum1 += xf.y;
-    });
-    s.red[warp * kC + 2 * lane] = sum0;
-    s.red[warp * kC + 2 * lane + 1] = sum1;
+    // pointwise, warp-local: kCells cells at a time through
+    // relu(y @ w1 + b1) -> tile (bf16) and then y2 = tile @ w2 + b2 (bf16),
+    // residual add (bf16) in place, and the channel sums for the SE mean
+    {
+      bf2* mine = tile + warp * kCells * C2;
+      float sum[2 * PPL];
+#pragma unroll
+      for (int k = 0; k < 2 * PPL; ++k) sum[k] = 0.f;
+      float acc[kCells][2 * PPL];
+      for (int cell0 = warp * kCells; cell0 < HW; cell0 += kWarps * kCells) {
+        const int n = min(kCells, HW - cell0);
+        product<C>(ybuf + cell0 * C2, n, w1, lane, acc);
+#pragma unroll
+        for (int j = 0; j < kCells; ++j)
+#pragma unroll
+          for (int k = 0; k < PPL; ++k) {
+            const int pr = lane + 32 * k;
+            mine[j * C2 + pr] = __floats2bfloat162_rn(fmaxf(acc[j][2 * k] + b1[2 * pr], 0.f),
+                                                      fmaxf(acc[j][2 * k + 1] + b1[2 * pr + 1], 0.f));
+          }
+        __syncwarp();
+        product<C>(mine, n, w2, lane, acc);
+#pragma unroll
+        for (int j = 0; j < kCells; ++j) {
+          if (j >= n) break;
+#pragma unroll
+          for (int k = 0; k < PPL; ++k) {
+            const int pr = lane + 32 * k;
+            bf2* xp = &act[(cell0 + j) * C2 + pr];
+            const float2 xo = __bfloat1622float2(*xp);
+            const float y0 = round_bf16(acc[j][2 * k] + b2[2 * pr]);
+            const float y1 = round_bf16(acc[j][2 * k + 1] + b2[2 * pr + 1]);
+            const bf2 xr = __floats2bfloat162_rn(y0 + xo.x, y1 + xo.y);
+            *xp = xr;
+            const float2 xf = __bfloat1622float2(xr);
+            sum[2 * k] += xf.x;
+            sum[2 * k + 1] += xf.y;
+          }
+        }
+        __syncwarp();
+      }
+#pragma unroll
+      for (int k = 0; k < PPL; ++k) {
+        red[warp * C + 2 * (lane + 32 * k)] = sum[2 * k];
+        red[warp * C + 2 * (lane + 32 * k) + 1] = sum[2 * k + 1];
+      }
+    }
     __syncthreads();
 
     // squeeze-excitation gate
-    if (tid < kC) {
-      float acc = 0.f;
+    const __nv_bfloat16* gsw1 = wt.sw1 + size_t(l) * C * C;
+    const __nv_bfloat16* gsw2 = wt.sw2 + size_t(l) * C * C;
+    if (tid < C) {
+      float a = 0.f;
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) acc += s.red[w * kC + tid];
-      z[tid] = round_bf16(acc / float(HW));
+      for (int w = 0; w < kWarps; ++w) a += red[w * C + tid];
+      z[tid] = round_bf16(a / float(HW));
     }
     __syncthreads();
-    if (tid < kC) h1[tid] = round_bf16(fmaxf(dense(z, s.sw1, tid) + sb1[tid], 0.f));
+    if (tid < C) h1[tid] = round_bf16(fmaxf(dense<C>(z, gsw1, tid) + sb1[tid], 0.f));
     __syncthreads();
-    if (tid < kC) {
-      const float a = dense(h1, s.sw2, tid) + sb2[tid];
+    if (tid < C) {
+      const float a = dense<C>(h1, gsw2, tid) + sb2[tid];
       gate[tid] = round_bf16(1.f / (1.f + expf(-a)));
     }
     __syncthreads();
 
     // channel scale (bf16) in place
-    for (int i = tid; i < HW * kC2; i += kThreads) {
-      const int cell = i / kC2, p = i % kC2;
-      const int r = cell / W, c = cell % W;
-      bf2* xp = &s.xpad[((r + kR) * PW + c + kR) * kC2 + p];
-      const float2 v = __bfloat1622float2(*xp);
-      *xp = __floats2bfloat162_rn(v.x * gate[2 * p], v.y * gate[2 * p + 1]);
+    for (int i = tid; i < HW * C2; i += kThreads) {
+      const int p = i % C2;
+      const float2 v = __bfloat1622float2(act[i]);
+      act[i] = __floats2bfloat162_rn(v.x * gate[2 * p], v.y * gate[2 * p + 1]);
     }
     __syncthreads();
   }
 
-  // store the board
   {
-    uint4* dst = reinterpret_cast<uint4*>(out + size_t(board) * HW * kC);
-    const uint4* src = reinterpret_cast<const uint4*>(s.xpad);
-    for (int i = tid; i < HW * (kC / 8); i += kThreads) {
-      const int cell = i / (kC / 8), q = i % (kC / 8);
-      const int r = cell / W, c = cell % W;
-      dst[i] = src[((r + kR) * PW + c + kR) * (kC / 8) + q];
-    }
+    uint4* dst = reinterpret_cast<uint4*>(out + size_t(board) * HW * C);
+    const uint4* src = reinterpret_cast<const uint4*>(act);
+    for (int i = tid; i < HW * C8; i += kThreads) dst[i] = src[i];
   }
+}
+
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, size_t smem, int B, const void* x, const Weights& wt, void* out,
+                   int H, int W, int L, void* stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), wt, static_cast<__nv_bfloat16*>(out), H, W, L);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -295,12 +345,8 @@ extern "C" int ag_convnext_trunk(const void* x, const void* dw, const void* bn_s
                                  const void* sb1, const void* sw2, const void* sb2,
                                  void* out, int B, int H, int W, int C, int L,
                                  void* stream) {
-  if (C != kC) return static_cast<int>(cudaErrorInvalidValue);
+  if (C != 64 && C != 128) return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0) return 0;
-  const size_t smem = smem_bytes(H, W);
-  cudaError_t err = cudaFuncSetAttribute(
-      convnext_trunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
   Weights wt;
   wt.dw = static_cast<const __nv_bfloat16*>(dw);
   wt.w1 = static_cast<const __nv_bfloat16*>(w1);
@@ -313,7 +359,9 @@ extern "C" int ag_convnext_trunk(const void* x, const void* dw, const void* bn_s
   wt.b2 = static_cast<const float*>(b2);
   wt.sb1 = static_cast<const float*>(sb1);
   wt.sb2 = static_cast<const float*>(sb2);
-  convnext_trunk_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), wt, static_cast<__nv_bfloat16*>(out), H, W, L);
-  return static_cast<int>(cudaGetLastError());
+  if (C == 64)
+    return static_cast<int>(launch(convnext_trunk_kernel<64>, Trunk<64>::bytes(H, W), B, x, wt,
+                                   out, H, W, L, stream));
+  return static_cast<int>(launch(convnext_trunk_kernel<128>, Trunk<128>::bytes(H, W), B, x, wt,
+                                 out, H, W, L, stream));
 }

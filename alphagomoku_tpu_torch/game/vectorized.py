@@ -1,9 +1,9 @@
 """Batched game rules on `[B, H, W]` int8 boards: the search path's subset.
 
 Port of the reference package's `game/vectorized.py` for freestyle,
-standard, caro5 and caro6: line-window extraction and the outcome check
-after a move.  Windows are packed 22-bit values (2 bits per cell over 11
-cells, the center masked to NONE) carried in int64.
+standard, caro5 and caro6: line-window extraction, the outcome check after
+a move, and the ThreatType lookup.  Windows are packed 22-bit values (2
+bits per cell over 11 cells, the center masked to NONE) carried in int64.
 
 Renju's forbidden-move recursion (`is_forbidden_u`, `forbidden_plane_u` in
 the reference package) is not ported yet; every entry point that would
@@ -15,6 +15,7 @@ from __future__ import annotations
 import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .types import CIRCLE, ILLEGAL, DIRECTION_STEPS, GameRules, GameOutcome
@@ -62,17 +63,28 @@ def pad_board(board: torch.Tensor) -> torch.Tensor:
 
 
 def windows_all(board: torch.Tensor) -> torch.Tensor:
-    """Packed 22-bit windows for EVERY cell: [B, H, W] -> [B, 4, H, W] int64."""
+    """Packed 22-bit windows for EVERY cell: [B, H, W] -> [B, 4, H, W] int64
+    (one gather of the 40 window cells of every cell from the padded
+    board)."""
     bsz, h, w = board.shape
-    p = pad_board(board).to(torch.int64)
-    out = []
-    for dr, dc in DIRECTION_STEPS:
-        acc = torch.zeros((bsz, h, w), dtype=torch.int64, device=board.device)
-        for i in _OFFSETS:
-            sl = p[:, PAD + i * dr : PAD + i * dr + h, PAD + i * dc : PAD + i * dc + w]
-            acc = acc | (sl << (2 * (i + PAD)))
-        out.append(acc)
-    return torch.stack(out, dim=1)
+    idx, shifts = _all_window_index(h, w, board.device)
+    cells = pad_board(board).reshape(bsz, -1).to(torch.int64)[:, idx]  # [B, 4, 10, HW]
+    return (cells << shifts[:, None]).sum(2).reshape(bsz, 4, h, w)  # disjoint fields: sum == OR
+
+
+@functools.lru_cache(maxsize=None)
+def _all_window_index(h: int, w: int, device: torch.device):
+    """Flat indices [4, 10, H*W] into the padded board of the window cells
+    of every cell, and the cells' bit shifts [10]."""
+    pw = w + 2 * PAD
+    r = torch.arange(h)[:, None] + PAD
+    c = torch.arange(w)[None, :] + PAD
+    idx = torch.stack([
+        torch.stack([((r + i * dr) * pw + c + i * dc).reshape(-1) for i in _OFFSETS])
+        for dr, dc in DIRECTION_STEPS
+    ])
+    shifts = 2 * (torch.tensor(_OFFSETS) + PAD)
+    return idx.to(device), shifts.to(device)
 
 
 def windows_at_one(
@@ -80,24 +92,29 @@ def windows_at_one(
 ) -> torch.Tensor:
     """Packed windows for ONE in-bounds query cell per board:
     [B, H, W] + [B] -> [B, 4] int64 (one gather of the 40 window cells)."""
-    p = pad_board(board).to(torch.int64)
-    dr, dc, shifts = _window_geometry(board.device)
-    r = rows.long()[:, None, None] + PAD + dr
-    c = cols.long()[:, None, None] + PAD + dc
-    b = torch.arange(board.shape[0], device=board.device)[:, None, None]
-    cells = p[b, r, c]  # [B, 4, 10]
-    return (cells << shifts).sum(-1)  # disjoint bit fields: sum == OR
+    bsz, h, w = board.shape
+    idx, shifts = _all_window_index(h, w, board.device)
+    cell = rows.long() * w + cols.long()
+    sel = idx[:, :, cell].permute(2, 0, 1).reshape(bsz, -1)  # [B, 40]
+    cells = pad_board(board).reshape(bsz, -1).to(torch.int64).gather(1, sel)
+    return (cells.reshape(bsz, 4, -1) << shifts).sum(-1)  # disjoint bit fields: sum == OR
+
+
+def threat_type(tables: RuleTables, pts: torch.Tensor, sign_is_circle) -> torch.Tensor:
+    """Combine 4 directional PatternTypes (last axis) into a ThreatType;
+    `sign_is_circle` is a bool broadcastable to `pts.shape[:-1]`."""
+    pts = pts.long()
+    idx = pts[..., 0] | (pts[..., 1] << 3) | (pts[..., 2] << 6) | (pts[..., 3] << 9)
+    enc = _threat_table(GameRules(tables.rules), pts.device)[idx]
+    circle = torch.as_tensor(sign_is_circle, device=enc.device)
+    return (enc >> torch.where(circle, 4, 0)) & 15
 
 
 @functools.lru_cache(maxsize=None)
-def _window_geometry(device: torch.device):
-    """Row/column steps [4, 10] of the window cells and their bit shifts
-    [10], built once per device (no host copies inside the search step)."""
-    steps = torch.tensor(DIRECTION_STEPS)
-    offs = torch.tensor(_OFFSETS)
-    dr = steps[:, 0, None] * offs[None, :]
-    dc = steps[:, 1, None] * offs[None, :]
-    return dr.to(device), dc.to(device), (2 * (offs + PAD)).to(device)
+def _threat_table(rules: GameRules, device: torch.device) -> torch.Tensor:
+    """int32 [8^4]: ThreatType nibbles (cross | circle << 4), on `device`
+    at its first use there."""
+    return torch.from_numpy(T._build_threat_table(rules).astype(np.int32)).to(device)
 
 
 def outcome_after(

@@ -146,6 +146,30 @@ def list_architectures() -> list[str]:
     return sorted(_REGISTRY)
 
 
+_BIAS_STD = 0.1
+
+
+@torch.no_grad()
+def init_random_(net: AGNetwork, generator: torch.Generator) -> AGNetwork:
+    """Fill `net` in place with random weights drawn from `generator` (a
+    CPU generator), in parameter order: conv and dense kernels from
+    N(0, 1/fan_in), as flax's default `lecun_normal`; biases, BatchNorm
+    shifts and the BatchNorm scales' offsets from 1 from N(0, 0.1^2), so
+    that no bias is zero (a check that a kernel kept each bias needs them
+    nonzero).  The BatchNorm statistics stay at mean 0, variance 1.
+    Returns `net`."""
+    bn_scales = {id(m.weight) for m in net.modules() if isinstance(m, B.BatchNorm)}
+    for p in net.parameters():
+        noise = torch.randn(p.shape, generator=generator, dtype=torch.float32)
+        if id(p) in bn_scales:
+            p.copy_(1.0 + _BIAS_STD * noise)
+        elif p.dim() > 1:  # conv (O, I, kh, kw) or dense (O, I) kernel
+            p.copy_(noise / p[0].numel() ** 0.5)
+        else:
+            p.copy_(_BIAS_STD * noise)
+    return net
+
+
 # ---------------------------------------------------------------------------
 # Inference-space postprocessing
 # ---------------------------------------------------------------------------

@@ -28,20 +28,27 @@ from . import _build
 __all__ = [
     "TrunkWeights", "fold_bn", "pack_trunk_weights", "fused_trunk",
     "fused_trunk_plain", "FusedWeights", "pack_weights", "fused_apply",
-    "BLOCK_LIMITS", "TRUNK_LIMITS",
+    "BLOCK_LIMITS", "TRUNK_LIMITS", "HEAD_LIMITS", "KERNEL_WIDTHS",
 ]
+
+KERNEL_WIDTHS = (64, 128)  # the filter counts csrc/convnext_trunk.cu is built for
 
 # How far the kernel may be from `fused_trunk_plain`, as limits of
 # `utils.bf16.agreement`.  Both round at the same points, so they differ
 # only where an f32 sum taken in another order lands across a bf16
 # rounding boundary.  BLOCK_LIMITS hold one block (L = 1) fed the plain
 # trunk's input to that block: such flips are rare there.  TRUNK_LIMITS
-# hold all L blocks, where each flip spreads through the later blocks, and
-# the network heads after them.  `chip_smoke.py` prints the measured shares
-# beside these limits, and those of kernels fed one bias left out, which
-# these limits reject.
+# hold all L blocks, where each flip spreads through the later blocks.
+# `chip_smoke.py` prints the measured shares beside these limits, and those
+# of kernels fed one bias left out, which these limits reject.
 BLOCK_LIMITS = dict(max_ulps=2.0, max_share_over=1e-3, max_share_differ=1e-2)
 TRUNK_LIMITS = dict(max_ulps=2.0, max_share_over=0.1, max_share_differ=0.25)
+# HEAD_LIMITS hold the network's heads after the trunk: TRUNK_LIMITS with
+# ulps counted of at least 1/16.  A head sums C trunk channels, so a trunk
+# flip of one ulp moves a logit by an absolute amount that does not shrink
+# with the logit; logits below 1/16 (all of a seeded network's policy
+# logits) are held to 2 ulps of 1/16, 0.00098.
+HEAD_LIMITS = dict(TRUNK_LIMITS, floor=2.0**-4)
 
 
 class TrunkWeights(NamedTuple):
@@ -124,15 +131,15 @@ def fused_trunk(x: torch.Tensor, w: TrunkWeights) -> torch.Tensor:
     the CUDA kernel for CUDA tensors, `fused_trunk_plain` for CPU tensors."""
     if x.device.type == "cpu":
         return fused_trunk_plain(x, w)
+    bsz, h, wd, c = x.shape
+    if c not in KERNEL_WIDTHS:
+        raise NotImplementedError(
+            f"fused_trunk kernel takes C in {KERNEL_WIDTHS} filters, got {c} (ROADMAP.md, "
+            "'TPU kernels to port': other trunk widths)"
+        )
     if x.device.type != "cuda":
         raise ValueError(f"fused_trunk: unsupported device {x.device}")
-    bsz, h, wd, c = x.shape
     nl = w.dw.shape[0]
-    if c != 64:
-        raise NotImplementedError(
-            f"fused_trunk kernel takes C = 64 filters, got {c} (ROADMAP.md, "
-            "'TPU kernels to port': the C = 128 trunk)"
-        )
     if w.dw.shape[1:3] != (7, 7):
         raise ValueError(f"fused_trunk: depthwise kernel {tuple(w.dw.shape[1:3])}, expected 7x7")
     dev = x.device

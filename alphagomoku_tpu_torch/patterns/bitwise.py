@@ -11,6 +11,10 @@ one `[11, ...]` tensor, each distinct rule mask becomes a bool "allowed"
 tensor over it, and a rule of length L is the AND of L shifted slices of
 those tensors, OR-reduced over the window offsets: about L tensor ops per
 rule instead of one per (offset, position).
+
+`pattern_table` runs that bit math once over all 4^10 window keys, so a
+caller that classifies every cell many times (the VCT solver) takes one
+lookup instead of a few hundred tensor ops, with the same results.
 """
 
 from __future__ import annotations
@@ -68,21 +72,60 @@ class _Cells:
         return hit
 
 
-def classify(windows: torch.Tensor, rules: GameRules) -> tuple[torch.Tensor, torch.Tensor]:
+def classify(
+    windows: torch.Tensor, rules: GameRules, kinds: tuple[str, ...] | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
     """PatternTypes (cross, circle) for packed empty-center windows.
 
     windows: integer tensor [...] of 22-bit windows, center read as NONE.
-    Returns two int32 tensors of PatternType codes."""
+    Returns two int32 tensors of PatternType codes.
+
+    kinds: optional subset of the `T._PRIORITY` kind names to evaluate;
+    a cell that matches only skipped kinds classifies as 0.  Exact for the
+    kinds kept as long as every higher-priority kind is kept too (the
+    priority filter only compares against higher kinds).  The solvers pass
+    THREAT_KINDS."""
     rules = GameRules(rules)
+    want = None if kinds is None else set(kinds)
     results = []
     for sign in (CROSS, CIRCLE):
         cells = _Cells(windows, sign)
         out = torch.zeros(windows.shape, dtype=torch.int32, device=windows.device)
         for kind, code in T._PRIORITY:
+            if want is not None and kind not in want:
+                continue
             hit = cells.match_any(_compiled_rules(rules, sign, kind))
             out = torch.where((out == 0) & hit, code, out)
         results.append(out)
     return results[0], results[1]
+
+
+@functools.lru_cache(maxsize=None)
+def pattern_table(rules: GameRules, device: torch.device,
+                  kinds: tuple[str, ...] | None = None) -> torch.Tensor:
+    """int32 [4^10]: the PatternType nibbles (cross | circle << 4) of every
+    center-free window key, computed once per rule, device and `kinds` by
+    `classify` itself: the reference's pattern table, built in memory."""
+    keys = torch.arange(T.NUM_PATTERNS, dtype=torch.int64, device=device)
+    cross, circle = classify((keys & 1023) | ((keys & 1047552) << 2), rules, kinds)
+    return (cross | (circle << 4)).to(torch.int32)
+
+
+def classify_by_table(
+    windows: torch.Tensor, rules: GameRules, kinds: tuple[str, ...] | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """`classify` as one lookup in `pattern_table`, with the same results."""
+    keys = (windows & 1023) | ((windows & 4190208) >> 2)  # drop the center cell
+    kinds = None if kinds is None else tuple(kinds)
+    enc = pattern_table(GameRules(rules), windows.device, kinds)[keys]
+    return enc & 15, enc >> 4
+
+
+# every kind the solvers' threat staging reads (all but half_open_three)
+THREAT_KINDS = (
+    "five", "overline", "open_four", "double_four", "half_open_four",
+    "open_three",
+)
 
 
 def five_mask(

@@ -1,17 +1,24 @@
-"""Pattern DSL and PatternType / ThreatType codes (numpy, torch-free).
+"""Pattern DSL, PatternType / ThreatType codes and the threat table
+(numpy, torch-free).
 
 A copy of the rule definitions of the reference package's
 `patterns/tables.py`: the matching-rule mini-DSL (`_parse`, `_wrap_*`,
-`_classifier_rules`, `_PRIORITY`) and the `PT_*` / `TT_*` codes.  The port
-classifies windows with bit math compiled from these rules
-(`patterns/bitwise.py`), so the 4^10 lookup-table build is not copied and
-nothing is cached on disk.
+`_classifier_rules`, `_PRIORITY`), the `PT_*` / `TT_*` codes, and the
+8^4-entry threat table (`_threat_of`, `_build_threat_table`), built in
+memory.  The port classifies windows with bit math compiled from these
+rules (`patterns/bitwise.py`, which also builds the 4^10 pattern table from
+that bit math), so the reference package's numpy build of that table is
+not copied and nothing is cached on disk.
 
 Rule semantics replicate the reference's PatternClassifier
 (reference: src/patterns/PatternClassifier.cpp:16-75, :182-327).
 """
 
 from __future__ import annotations
+
+import functools
+
+import numpy as np
 
 from ..game.types import (
     NONE,
@@ -206,3 +213,71 @@ _PRIORITY = [
     ("open_three", PT_OPEN_3),
     ("half_open_three", PT_HALF_OPEN_3),
 ]
+
+
+# ---------------------------------------------------------------------------
+# Threat table: ThreatType from the four directional PatternTypes
+# ---------------------------------------------------------------------------
+
+
+def _threat_of(pts: np.ndarray, rules: GameRules, for_circle: bool) -> np.ndarray:
+    """ThreatType [N] from 4 directional PatternTypes [N, 4]; exact
+    re-expression of reference get_threat (src/patterns/ThreatTable.cpp:52-96).
+
+    `for_circle` selects which half of the renju ThreatEncoding pairs applies:
+    black overline is forbidden (OVERLINE) while for white the same pattern
+    group means a win (FIVE), etc.
+    """
+    count5 = (pts == PT_FIVE).sum(1)
+    count_ol = (pts == PT_OVERLINE).sum(1)
+    count_o3 = (pts == PT_OPEN_3).sum(1)
+    count_o4 = (pts == PT_OPEN_4).sum(1)
+    count4 = count_o4 + (pts == PT_HALF_OPEN_4).sum(1)
+    has_d4 = (pts == PT_DOUBLE_4).sum(1) > 0
+    has_ho4 = (pts == PT_HALF_OPEN_4).sum(1) > 0
+    has_ho3 = (pts == PT_HALF_OPEN_3).sum(1) > 0
+
+    is5 = count5 > 0
+    is_ol = count_ol > 0
+    fork33 = count_o3 >= 2
+    fork43 = (count_o3 >= 1) & (count4 >= 1)
+    fork44 = has_d4 | (count4 >= 2)
+    has_o4 = count_o4 > 0
+
+    out = np.zeros(len(pts), dtype=np.uint8)
+    # Assign lowest priority first, then overwrite with higher priorities.
+    out[has_ho3] = TT_HALF_OPEN_3
+    out[count_o3 > 0] = TT_OPEN_3
+    out[has_ho4] = TT_HALF_OPEN_4
+    out[fork33] = TT_FORK_3x3
+    if rules == GameRules.RENJU:
+        # Reference priority: overline > fork44 > open4 > fork43 (applied here
+        # lowest-first, later assignments overwrite).  A 4x3 or open-4 point
+        # that is simultaneously a 3x3 fork is still forbidden for black
+        # (reference: ThreatTable.cpp:63-76).
+        out[fork43] = TT_FORK_4x3
+        out[fork43 & fork33] = TT_FORK_4x3 if for_circle else TT_FORK_3x3
+        out[has_o4] = TT_OPEN_4
+        out[has_o4 & fork33] = TT_OPEN_4 if for_circle else TT_FORK_3x3
+        out[fork44] = TT_FORK_4x4
+        out[is_ol] = TT_FIVE if for_circle else TT_OVERLINE
+    else:
+        out[fork43] = TT_FORK_4x3
+        out[has_o4] = TT_OPEN_4
+        out[fork44] = TT_FORK_4x4
+    out[is5] = TT_FIVE
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _build_threat_table(rules: GameRules) -> np.ndarray:
+    """uint8[8^4]: ThreatType nibbles (cross | circle<<4) indexed by
+    sum(PatternType[dir] << 3*dir).  Built in memory, once per rule."""
+    rules = GameRules(rules)
+    idx = np.arange(8**4, dtype=np.uint32)
+    pts = np.stack([(idx >> np.uint32(3 * d)) & 7 for d in range(4)], axis=1).astype(np.uint8)
+    cross = _threat_of(pts, rules, for_circle=False)
+    circle = _threat_of(pts, rules, for_circle=True)
+    out = (cross | (circle << 4)).astype(np.uint8)
+    out.flags.writeable = False
+    return out

@@ -2,9 +2,11 @@
 in lockstep by one simulation per tree per step.
 
 Port of the reference package's `search/mcts.py` at its defaults:
-`policy="puct"`, `init_to="parent"`, `leaf_batch=1`, `leaf_solver="none"`,
-no root noise, no symmetry averaging, no NNUE; transpositions on (or off).
-Other configuration values raise NotImplementedError (`check_config`).
+`policy="puct"`, `init_to="parent"`, `leaf_batch=1`, no root noise, no
+symmetry averaging, no NNUE; transpositions on (or off); the leaf solver
+off or `leaf_solver="vct"` (the engine default, `search/vct_batched.py`)
+without the loss prover.  Other configuration values raise
+NotImplementedError (`check_config`).
 
 Mapping to the reference (src/search/monte_carlo/{Tree,Search,Node,Edge,
 EdgeSelector,EdgeGenerator}.cpp), as in the reference package:
@@ -46,6 +48,7 @@ from ..patterns import features as F
 from ..ops.score_scan import score_scan
 from . import score as S
 from . import static_solver
+from . import vct_batched
 from . import zobrist
 
 NULL = -1
@@ -94,8 +97,8 @@ def check_config(cfg: MCTSConfig) -> None:
         (cfg.leaf_batch == 1, f"leaf_batch={cfg.leaf_batch}", 10),
         (cfg.noise_weight == 0.0, f"noise_weight={cfg.noise_weight}", 10),
         (not cfg.symmetry_averaging, "symmetry_averaging", 10),
-        (cfg.leaf_solver == "none", f"leaf_solver={cfg.leaf_solver!r}", 9),
-        (not cfg.loss_prover, "loss_prover", 9),
+        (cfg.leaf_solver in ("none", "vct"), f"leaf_solver={cfg.leaf_solver!r}", "9a"),
+        (not cfg.loss_prover, "loss_prover", "9b"),
     ]
     for ok, what, item in checks:
         if not ok:
@@ -275,6 +278,65 @@ def _edge_scores_from_analysis(
     return torch.where(actions != NULL, escore, S.zero())
 
 
+def _solve(
+    tables: V.RuleTables, cfg: MCTSConfig, board: torch.Tensor, stm: torch.Tensor,
+    active: torch.Tensor, dtd: torch.Tensor, max_steps: int, cap: int = 0,
+    packed: torch.Tensor | None = None,
+):
+    """The VCT leaf solver on the positions [B, H, W] (reference: the
+    alpha-beta leg run on every leaf batch, Search.cpp:159-183).
+
+    With `0 < cap < B`, only `cap` positions are solved: the `active` ones
+    with any threat cell of the side to move (own pattern-group bits of the
+    encoded features `packed`) first, then the lowest-indexed others, as
+    `lax.top_k` picks them from a 0/1 mask (a stable descending sort).
+    Returns (win [B], best_move [B], win score [B]): `win` holds only for
+    `active` positions whose mate fits the draw horizon `dtd`."""
+    bsz = board.shape[0]
+    if cap and cap < bsz:
+        interest = ((packed >> 8) & 0xFFF).ne(0).flatten(1).any(-1) & active
+        sel = torch.sort(interest.int(), descending=True, stable=True).indices[:cap]
+        sres = vct_batched.solve(
+            tables, board[sel], stm[sel], max_depth=cfg.leaf_solver_depth,
+            max_steps=max_steps, max_threes=cfg.leaf_solver_threes,
+        )
+        # scatter the compacted proofs back (top-k indices are distinct)
+        win = torch.zeros(bsz, dtype=torch.bool, device=board.device).index_copy(0, sel, sres.win)
+        best = torch.full((bsz,), -1, dtype=torch.int32, device=board.device)
+        best = best.index_copy(0, sel, sres.best_move)
+        dist = torch.zeros(bsz, dtype=torch.int32, device=board.device)
+        dist = dist.index_copy(0, sel, sres.distance)
+    else:
+        win, best, dist = vct_batched.solve(
+            tables, board, stm, max_depth=cfg.leaf_solver_depth, max_steps=max_steps,
+            max_threes=cfg.leaf_solver_threes,
+        )
+    # a mate longer than the draw horizon is a draw, not a win
+    win = win & active & (dist <= dtd)
+    return win, best, S.win_in(dist.clamp(1, 512))
+
+
+def _apply_proofs(analysis: static_solver.StaticAnalysis, policy: torch.Tensor,
+                  win: torch.Tensor, best: torch.Tensor, win_sc: torch.Tensor):
+    """A proven win scores the winning action and the node, and boosts the
+    action's prior by 1 so expansion keeps it (UnifiedGenerator
+    solver-edge precedence).  Win scores pack above every unproven code and
+    shorter mates pack higher, so maximum keeps the strongest claim."""
+    bsz = policy.shape[0]
+    b = torch.arange(bsz, device=policy.device)
+    idx = best.long().clamp(0, policy[0].numel() - 1)
+    asf = analysis.action_scores.reshape(bsz, -1).clone()
+    asf[b, idx] = torch.where(win, torch.maximum(asf[b, idx], win_sc), asf[b, idx])
+    policy = policy.reshape(bsz, -1).clone()
+    policy[b, idx] += win.to(policy.dtype)
+    analysis = analysis._replace(
+        action_scores=asf.reshape(analysis.action_scores.shape),
+        node_score=torch.where(win, torch.maximum(analysis.node_score, win_sc),
+                               analysis.node_score),
+    )
+    return analysis, policy.reshape(bsz, *analysis.action_scores.shape[1:])
+
+
 def _evaluate(
     net_apply: Callable, variables: Any, tables: V.RuleTables, board, stm, raw_input: bool
 ):
@@ -421,6 +483,15 @@ def make_simulate_fn(
             value = torch.where(terminal[:, None], S.convert_to_value(term_score), value)
             analysis = static_solver.analyze(packed, legal, dtd)
 
+        solver_win = torch.zeros_like(need)
+        if cfg.leaf_solver == "vct":
+            with record_function("mcts.solve"):
+                solver_win, best, win_sc = _solve(
+                    tables, cfg, boardc, stm, need & ~terminal, dtd, cfg.leaf_solver_steps,
+                    cfg.leaf_solver_cap, packed,
+                )
+                analysis, policy = _apply_proofs(analysis, policy, solver_win, best, win_sc)
+
         with record_function("mcts.expand"):
             # -- EXPAND (reference: Tree::expand, Tree.cpp:257-298) ---------
             hash_f = zobrist.full_hash(boardc, stm)  # [B, 2]
@@ -550,7 +621,7 @@ def make_simulate_fn(
             duplicates=st.duplicates + zero,
             proven_revisits=st.proven_revisits + revisit.int(),
             terminals=st.terminals + (terminal & need).int(),
-            solver_wins=st.solver_wins + zero,
+            solver_wins=st.solver_wins + solver_win.int(),
             solver_losses=st.solver_losses + zero,
         )
         return state._replace(sims_done=state.sims_done + 1, stats=stats, frontier=alloc)
@@ -582,6 +653,17 @@ def init_root(
     draw_after = cfg.draw_after if cfg.draw_after > 0 else h * w
     dtd_root = draw_after - (board != 0).sum((1, 2)).int()
     analysis = static_solver.analyze(packed, legal, dtd_root)
+    if cfg.leaf_solver == "vct":
+        # solve the roots too (with 4x the leaves' budget): roots never
+        # appear as leaves, and a root-proven win makes the proven edge
+        # dominate selection at once (reference: AlphaBetaSearch also
+        # solves root tasks)
+        with record_function("mcts.solve"):
+            win, best, win_sc = _solve(
+                tables, cfg, board, stm, torch.ones_like(dtd_root, dtype=torch.bool), dtd_root,
+                4 * cfg.leaf_solver_steps,
+            )
+            analysis, policy = _apply_proofs(analysis, policy, win, best, win_sc)
     actions, priors, complete = _topk_edges(
         policy, analysis.restrict, cfg.max_edges, cfg.policy_expansion_temperature
     )

@@ -1,5 +1,7 @@
 """The port's run_search held against the JAX package's, array for array,
-with one deterministic stub network fed to both."""
+with one deterministic stub network fed to both.  Freestyle is compared
+live here; the other rules and the leaf-solver search compare against
+goldens of the same JAX computation (`jax_stub_search`, tests/torch_golden)."""
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +17,7 @@ from alphagomoku_tpu.search import mcts as JM
 from alphagomoku_tpu_torch.game import vectorized as TV
 from alphagomoku_tpu_torch.models.networks import NetOutput
 from alphagomoku_tpu_torch.search import mcts as TM
+from tests import torch_golden
 
 torch.set_num_threads(1)
 
@@ -83,37 +86,58 @@ EXACT = ("node_visits", "node_count", "edge_action", "edge_child", "node_score",
 CLOSE = ("node_value_sum", "edge_prior")
 
 
-def check_stub_search(rules):
-    """Both packages' run_search with the stub network: the trees must be
-    equal array for array (values and priors within 1e-5 relative)."""
+def _results(state, search, to_np) -> dict:
+    """The arrays a stub search is compared on: the tree, the statistics
+    and the three result readers."""
+    out = {f"tree.{n}": to_np(getattr(state.tree, n)).astype(np.int64) for n in EXACT}
+    out.update({f"tree.{n}": to_np(getattr(state.tree, n)).astype(np.float32) for n in CLOSE})
+    out.update({f"stats.{n}": to_np(v) for n, v in state.stats._asdict().items()})
+    out["select_move"] = to_np(search.select_move(state))
+    out["root_value"] = to_np(search.root_value(state))
+    out["root_visit_distribution"] = to_np(search.root_visit_distribution(state))
+    return out
+
+
+def jax_stub_search(rules, **cfg) -> dict:
+    """The JAX package's run_search with the stub network (the reference
+    side of the stub tests and of their goldens)."""
     boards, stm = boards_and_stm()
     jtables = JV.RuleTables(pattern=None, threat=None, rules=int(rules))
-    search = jax.jit(lambda b, s: JM.run_search(jax_stub, None, jtables, JAX_CFG, b, s, SIMS))
+    jcfg = JAX_CFG._replace(**cfg)
+    search = jax.jit(lambda b, s: JM.run_search(jax_stub, None, jtables, jcfg, b, s, SIMS))
     js = search(jnp.asarray(boards), jnp.asarray(stm))
+    return _results(js, JM, lambda a: np.asarray(a).astype(
+        np.float32 if a.dtype == jnp.bfloat16 else a.dtype))
+
+
+def check_stub_search(rules, golden: str | None = None, **cfg):
+    """The port's run_search with the stub network against the JAX
+    package's (live, or its golden `golden`): the trees must be equal
+    array for array (values and priors within 1e-5 relative)."""
+    ref = jax_stub_search(rules, **cfg) if golden is None else torch_golden.load(golden)
+    boards, stm = boards_and_stm()
     ts = TM.run_search(
-        torch_stub, None, TV.device_tables(rules), TORCH_CFG, boards, stm, SIMS, device="cpu"
+        torch_stub, None, TV.device_tables(rules), TORCH_CFG._replace(**cfg), boards,
+        stm, SIMS, device="cpu",
     )
-    for name in EXACT:
-        a = np.asarray(getattr(js.tree, name)).astype(np.int64)
-        b = getattr(ts.tree, name).numpy().astype(np.int64)
-        assert np.array_equal(a, b), name
-    for name in CLOSE:
-        a = np.asarray(getattr(js.tree, name), np.float32)
-        b = getattr(ts.tree, name).float().numpy()
-        assert np.allclose(a, b, rtol=1e-5, atol=0), name
-    for name, a in ts.stats._asdict().items():
-        assert np.array_equal(np.asarray(getattr(js.stats, name)), a.numpy()), name
-    assert np.array_equal(np.asarray(JM.select_move(js)), TM.select_move(ts).numpy())
-    assert np.allclose(np.asarray(JM.root_value(js)), TM.root_value(ts).numpy(), rtol=1e-5)
-    assert np.allclose(
-        np.asarray(JM.root_visit_distribution(js)), TM.root_visit_distribution(ts).numpy(),
-        rtol=1e-6,
-    )
+    ours = _results(ts, TM, lambda t: t.float().numpy() if t.is_floating_point() else t.numpy())
+    assert sorted(ours) == sorted(ref)
+    for name, a in ref.items():
+        b = ours[name]
+        if name.startswith("tree.") and name[5:] in CLOSE:
+            assert np.allclose(a, b, rtol=1e-5, atol=0), name
+        elif name == "root_value":
+            assert np.allclose(a, b, rtol=1e-5), name
+        elif name == "root_visit_distribution":
+            assert np.allclose(a, b, rtol=1e-6), name
+        else:
+            assert np.array_equal(a.astype(np.int64), b.astype(np.int64)), name
     # the searches went through expansion, transpositions and proofs
     assert int(ts.stats.expansions.sum()) > 0
     assert int(ts.stats.transpositions.sum()) > 0
     assert TM.S.is_proven(ts.tree.edge_score).any()
     assert TM.S.is_loss(ts.tree.edge_score).any() or TM.S.is_draw(ts.tree.node_score).any()
+    return ts
 
 
 def test_stub_search_matches_jax_freestyle():
@@ -121,12 +145,23 @@ def test_stub_search_matches_jax_freestyle():
 
 
 def test_unported_config_raises():
+    """Options outside the ported slice raise naming ROADMAP.md: another
+    policy, leaf_batch > 1, the VCF leaf solver, the loss prover, and a
+    trunk width the kernel has no layout for; the VCT leaf solver runs."""
     boards, stm = boards_and_stm()
     tables = TV.device_tables(GameRules.FREESTYLE)
     for cfg in (TORCH_CFG._replace(policy="ucb"), TORCH_CFG._replace(leaf_batch=2),
-                TORCH_CFG._replace(leaf_solver="vct")):
+                TORCH_CFG._replace(leaf_solver="vcf"),
+                TORCH_CFG._replace(leaf_solver="vct", loss_prover=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TM.run_search(torch_stub, None, tables, cfg, boards, stm, 1, device="cpu")
+    TM.run_search(torch_stub, None, tables, TORCH_CFG._replace(leaf_solver="vct"), boards, stm,
+                  1, device="cpu")
+    from alphagomoku_tpu_torch.ops import convnext_fused as CF
+
+    x = torch.zeros((1, 15, 15, 256), dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        CF.fused_trunk(x.to("meta"), None)
 
 
 def test_select_move_samples_root_edges_by_visits():

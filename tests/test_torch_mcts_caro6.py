@@ -1,6 +1,6 @@
 """The port's run_search held against the JAX package's under caro6
-rules, with the stub network of tests/test_torch_mcts.py (its own file so
-that each file's JAX compile stays well inside a minute)."""
+rules, with the stub network of tests/test_torch_mcts.py, against the
+golden of the JAX search (tests/torch_golden/stub_search_caro6.npz)."""
 
 import torch
 
@@ -12,4 +12,4 @@ torch.set_num_threads(1)
 
 
 def test_stub_search_matches_jax_caro6():
-    check_stub_search(GameRules.CARO6)
+    check_stub_search(GameRules.CARO6, golden="stub_search_caro6")

@@ -1,6 +1,6 @@
 """The port's score_scan: plain version bit-identical to the JAX oracle and
-to the Pallas kernel in interpret mode; CUDA kernel bit-identical to the
-plain version (on a machine with a card).
+to the Pallas kernel in interpret mode (the golden score_scan_interpret);
+CUDA kernel bit-identical to the plain version (on a machine with a card).
 
 The JAX package is imported inside the parity test, so that the card's
 tests run where JAX is not installed:
@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from alphagomoku_tpu_torch.ops import score_scan as TSS
+from tests import torch_golden
 
 torch.set_num_threads(1)
 
@@ -55,16 +56,32 @@ def to_torch(args, device="cpu"):
     return i32(start), b(valid), i32(sl), i32(es), b(ea), b(comp), i32(ns)
 
 
-@pytest.mark.parametrize("B,D,K,seed", CASES)
-def test_plain_matches_jax_oracle_and_pallas_interpret(B, D, K, seed):
+def jax_score_scan_interpret() -> dict:
+    """The Pallas kernel in interpret mode on every case (the reference
+    side of the golden score_scan_interpret)."""
     import jax.numpy as jnp
     from alphagomoku_tpu.ops.score_scan import score_scan as jax_score_scan
+
+    out = {}
+    for B, D, K, seed in CASES:
+        e, ns = jax_score_scan(*[jnp.asarray(a) for a in random_inputs(B, D, K, seed)],
+                               interpret=True)
+        out[f"{B}-{D}-{K}-{seed}.e"] = np.asarray(e).astype(np.int64)
+        out[f"{B}-{D}-{K}-{seed}.ns"] = np.asarray(ns).astype(np.int64)
+    return out
+
+
+@pytest.mark.parametrize("B,D,K,seed", CASES)
+def test_plain_matches_jax_oracle_and_pallas_interpret(B, D, K, seed):
+    """Bit-identical to the JAX oracle (live) and to the Pallas kernel in
+    interpret mode (the golden score_scan_interpret)."""
+    import jax.numpy as jnp
     from alphagomoku_tpu.ops.score_scan import score_scan_reference
 
     args = random_inputs(B, D, K, seed)
-    jargs = [jnp.asarray(a) for a in args]
-    ref_e, ref_ns = score_scan_reference(*jargs)
-    ker_e, ker_ns = jax_score_scan(*jargs, interpret=True)
+    ref_e, ref_ns = score_scan_reference(*[jnp.asarray(a) for a in args])
+    golden = torch_golden.load("score_scan_interpret")
+    ker_e, ker_ns = golden[f"{B}-{D}-{K}-{seed}.e"], golden[f"{B}-{D}-{K}-{seed}.ns"]
     e, ns = TSS.score_scan(*to_torch(args))
     for jax_out, port in ((ref_e, e), (ref_ns, ns), (ker_e, e), (ker_ns, ns)):
         assert np.array_equal(np.asarray(jax_out).astype(np.int64), port.numpy().astype(np.int64))
