@@ -28,7 +28,7 @@ from . import _build
 __all__ = [
     "TrunkWeights", "fold_bn", "pack_trunk_weights", "fused_trunk",
     "fused_trunk_plain", "FusedWeights", "pack_weights", "fused_apply",
-    "BLOCK_LIMITS", "TRUNK_LIMITS", "HEAD_LIMITS", "KERNEL_WIDTHS",
+    "trunk_occupancy", "BLOCK_LIMITS", "TRUNK_LIMITS", "HEAD_LIMITS", "KERNEL_WIDTHS",
 ]
 
 KERNEL_WIDTHS = (64, 128)  # the filter counts csrc/convnext_trunk.cu is built for
@@ -164,6 +164,17 @@ def fused_trunk(x: torch.Tensor, w: TrunkWeights) -> torch.Tensor:
 
 
 fused_trunk.launches = 0
+
+
+def trunk_occupancy(c: int, h: int = 15, w: int = 15) -> dict:
+    """What the trunk kernel at width `c` on h x w boards gets from the
+    current card: CTAs per SM, registers per thread, shared memory per CTA
+    (bytes) and local memory per thread (bytes; spills)."""
+    import ctypes
+
+    info = (ctypes.c_int * 4)()
+    _build.check(_build.library().ag_convnext_trunk_occupancy(c, h, w, info), "trunk_occupancy")
+    return dict(zip(("ctas_per_sm", "registers", "smem_bytes", "local_bytes"), info))
 
 
 # ---------------------------------------------------------------------------

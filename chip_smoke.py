@@ -11,8 +11,10 @@ Phases, one line each (any failure exits non-zero):
   4. fused_trunk - kernel vs plain version at B = 1280, C = 64, L = 6 with
      the flagship network_23 weights, in bf16 ulps (utils/bf16.py): all
      six blocks, each block alone, and kernels fed one bias left out, which
-     the check must reject; timings, the bound, and the same trunk through
-     cuDNN/cuBLAS (bf16 conv2d + matmul) as a yardstick;
+     the check must reject; timings, the bound, the same trunk through
+     cuDNN/cuBLAS (bf16 conv2d + matmul) as a yardstick, and what the kernel
+     gets from the card (registers per thread, CTAs per SM, shared memory
+     per CTA, spills: `convnext_fused.trunk_occupancy`);
   5. network - the full fused forward (kernel trunk) vs the same forward
      with the plain trunk, head by head, in bf16 ulps of at least 1/16
      (`HEAD_LIMITS`);
@@ -312,6 +314,10 @@ def trunk_phase(net, planes, tag: str) -> dict:
         lib_out = library_trunk(x, tw)
         trunk_lib_ms = time_cuda(lambda: library_trunk(x, tw))
     L, C = tw.dw.shape[0], x.shape[-1]
+    occ = CF.trunk_occupancy(C, H, W)
+    print(f"{tag} occupancy: C={C}: {occ['registers']} registers per thread, "
+          f"{occ['ctas_per_sm']} CTAs per SM, {occ['smem_bytes']} bytes of shared memory per "
+          f"CTA, {occ['local_bytes']} bytes of local memory (spills) per thread", flush=True)
     dw_flops = 2.0 * 49 * H * W * C * BATCH * L
     mm_flops = (2.0 * 2 * H * W * C * C + 2.0 * 2 * C * C) * BATCH * L
     trunk_bytes = 2 * x.numel() * x.element_size() + sum(
@@ -331,6 +337,7 @@ def trunk_phase(net, planes, tag: str) -> dict:
         share_differ=trunk["share_differ"], share_over_2ulps=trunk["share_over"], ms=trunk_ms,
         call_ms=trunk_call_ms, plain_ms=trunk_plain_ms, bound_ms=trunk_bound_ms,
         bound_by="operations" if ops_ms >= bytes_ms else "bytes", library_ms=trunk_lib_ms,
+        **occ,
     )
 
 

@@ -345,3 +345,62 @@ def test_trunk128_check_rejects_a_kernel_without_a_bias_on_card(cuda_device, bia
     out = CF.fused_trunk(x, _without_last(tw, bias))
     held = agreement(CF.fused_trunk_plain(x, tw), out, **CF.TRUNK_LIMITS)
     assert not held["ok"], held
+
+
+# Edges of the kernel's tiling: a lone board, a batch that is no multiple
+# of anything, boards whose H*W is not a multiple of 16 (the last m16 tile
+# of the products holds rows past H*W, which must not be written back or
+# summed into the SE mean), and a trunk of one block.
+TRUNK_EDGES = {  # name -> (batch, rows, cols, blocks or None for all)
+    "batch1": (1, 15, 15, None),
+    "batch133": (133, 15, 15, None),
+    "board10x10": (16, 10, 10, None),
+    "board13x13": (16, 13, 13, None),
+    "one_block": (64, 15, 15, 1),
+}
+
+
+def _edge_trunk_input(device, filters, batch, rows, cols, blocks, seed):
+    """The flagship (C = 64) or seeded 8x128 (C = 128) trunk, cut to
+    `blocks`, and its stem's output on seeded rows x cols planes."""
+    if filters == 64:
+        net = network_from_flax(checkpoint.load(CKPT))
+    else:
+        net = init_random_(create_network("ConvNextPVQMraw", blocks=8, filters=128),
+                           torch.Generator().manual_seed(0))
+    net = net.to(device).eval()
+    rng = np.random.default_rng(seed)
+    planes = torch.from_numpy((rng.random((batch, rows, cols, 8)) < 0.3).astype(np.float32))
+    with torch.no_grad():
+        x = net.stem_forward(planes.to(device)).permute(0, 2, 3, 1).contiguous()
+    tw = CF.pack_trunk_weights(net)
+    return x, CF.TrunkWeights(*(t[:blocks].contiguous() for t in tw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("filters", [64, 128])
+@pytest.mark.parametrize("edge", sorted(TRUNK_EDGES))
+def test_trunk_kernel_edges_on_card(cuda_device, filters, edge):
+    """All blocks within TRUNK_LIMITS and each block alone, fed the plain
+    trunk's input to it, within BLOCK_LIMITS."""
+    batch, rows, cols, blocks = TRUNK_EDGES[edge]
+    x, tw = _edge_trunk_input(cuda_device, filters, batch, rows, cols, blocks, seed=7)
+    held = agreement(CF.fused_trunk_plain(x, tw), CF.fused_trunk(x, tw), **CF.TRUNK_LIMITS)
+    assert held["ok"], held
+    for l in range(tw.dw.shape[0]):
+        wl = CF.TrunkWeights(*(t[l:l + 1].contiguous() for t in tw))
+        ref = CF.fused_trunk_plain(x, wl)
+        held = agreement(ref, CF.fused_trunk(x, wl), **CF.BLOCK_LIMITS)
+        assert held["ok"], (l, held)
+        x = ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("filters", [64, 128])
+def test_trunk_occupancy_on_card(cuda_device, filters):
+    """Two CTAs per SM at C = 64 and one at C = 128, each of 256 threads
+    within the SM's 65,536 registers."""
+    occ = CF.trunk_occupancy(filters)
+    assert occ["ctas_per_sm"] == (2 if filters == 64 else 1), occ
+    assert occ["ctas_per_sm"] * 256 * occ["registers"] <= 65536, occ
+    assert occ["smem_bytes"] * occ["ctas_per_sm"] <= 228 * 1024, occ
