@@ -34,6 +34,8 @@ _I = ctypes.c_int
 # C entry points: name -> argument types (every one returns a cudaError_t)
 SIGNATURES = {
     "ag_score_scan": [_P] * 9 + [_I, _I, _I, _P],
+    "ag_score_backup": [_P] * 7 + [_I, _I, _I, _I, _P],
+    "ag_score_scan_occupancy": [_I, _I, _P],
     "ag_convnext_trunk": [_P] * 13 + [_I, _I, _I, _I, _I, _P],
     "ag_convnext_trunk_occupancy": [_I, _I, _I, _P],
 }

@@ -7,20 +7,39 @@ edge's packed 16-bit score from the child's score (`invert_up`) and then
 re-minimaxes the node: WIN if any edge is WIN; LOSS/DRAW only when every
 edge of a COMPLETE node is proven.
 
-`score_scan` launches the CUDA kernel `csrc/score_scan.cu` (the port of the
-Pallas kernel `alphagomoku_tpu/ops/score_scan.py:_kernel`) for CUDA
-tensors and runs `score_scan_plain` for CPU tensors.  Shapes:
-start [R] int32; valid/comp [R, D] bool; sl [R, D] int32;
-es [R, D, K] int32; ea [R, D, K] bool; ns [R, D] int32 -> (e_new, ns_new)
-[R, D] int32.  Scores are packed uint16 values carried in int32.
+Two entry points, both on the CUDA kernels of `csrc/score_scan.cu` (the
+port of the Pallas kernel `alphagomoku_tpu/ops/score_scan.py:_kernel`) for
+CUDA tensors and on their plain versions for CPU tensors:
+
+- `score_scan(start, valid, sl, es, ea, comp, ns)`, the Pallas kernel's
+  interface, on the path's rows gathered beforehand.  Shapes: start [R]
+  int32; valid/comp [R, D] bool; sl [R, D] int32; es [R, D, K] int32;
+  ea [R, D, K] bool; ns [R, D] int32 -> (e_new, ns_new) [R, D] int32.
+- `score_backup(edge_score, edge_action, node_complete, node_score, pn,
+  ps, start_score)`, the whole proven-score backup of a simulation step
+  (the search's backup B): per board it reads the path's edge and node
+  rows where they lie in the tree and writes the new edge and node scores
+  back into the tree IN PLACE.  The JAX package builds the scan's inputs
+  with one-hot einsums and writes back through dedup and one-hot deltas,
+  a workaround for the TPU's lack of per-row gathers; updating the tree
+  in place is the port's choice (a search owns its tree), and one launch
+  replaces the gathers, the scan and the two `index_put_`s.  It takes one
+  path per board (`leaf_batch = 1`); more paths per board need the claim
+  dedup of the JAX backup first (ROADMAP.md, item 10).
+
+Scores are packed uint16 values carried in int32.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from ..search import score as S
 from . import _build
+
+NULL = -1  # empty edge slot (edge_action), empty path level (pn, ps)
 
 
 def score_scan_plain(start, valid, sl, es, ea, comp, ns):
@@ -50,15 +69,20 @@ def score_scan_plain(start, valid, sl, es, ea, comp, ns):
     return e_out, ns_out
 
 
-def _check(name, t, dtype, shape, device):
+def _check(name, t, dtype, shape, device, what="score_scan"):
     if t.device != device:
-        raise ValueError(f"score_scan: {name} is on {t.device}, expected {device}")
+        raise ValueError(f"{what}: {name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
-        raise TypeError(f"score_scan: {name} has dtype {t.dtype}, expected {dtype}")
+        raise TypeError(f"{what}: {name} has dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != shape:
-        raise ValueError(f"score_scan: {name} has shape {tuple(t.shape)}, expected {shape}")
+        raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
-        raise ValueError(f"score_scan: {name} must be contiguous")
+        raise ValueError(f"{what}: {name} must be contiguous")
+
+
+def _check_lanes(K, what):
+    if K > 32:
+        raise ValueError(f"{what}: K = {K} edges exceeds the kernel's 32 lanes")
 
 
 def score_scan(start, valid, sl, es, ea, comp, ns):
@@ -70,8 +94,7 @@ def score_scan(start, valid, sl, es, ea, comp, ns):
         raise ValueError(f"score_scan: unsupported device {start.device}")
     R, D = valid.shape
     K = es.shape[2]
-    if K > 32:
-        raise ValueError(f"score_scan: K = {K} edges exceeds the kernel's 32 lanes")
+    _check_lanes(K, "score_scan")
     dev = start.device
     _check("start", start, torch.int32, (R,), dev)
     _check("valid", valid, torch.bool, (R, D), dev)
@@ -94,3 +117,83 @@ def score_scan(start, valid, sl, es, ea, comp, ns):
 
 
 score_scan.launches = 0
+
+
+def score_backup_plain(edge_score, edge_action, node_complete, node_score, pn, ps, start_score):
+    """Plain PyTorch version: gather the path's rows, `score_scan_plain`,
+    then write each changed score back as new minus old with `index_put_`."""
+    bsz, D = pn.shape
+    valid = pn != NULL  # [B, D]
+    nd = torch.where(valid, pn, 0)
+    bb = torch.arange(bsz, device=pn.device)[:, None].expand(bsz, D)
+    sl = torch.where(valid, ps, 0)
+    es_rows = torch.where(valid[..., None], edge_score[bb, nd], 0)
+    ea_rows = (edge_action[bb, nd] != NULL) & valid[..., None]
+    comp_rows = node_complete[bb, nd] & valid
+    ns_rows = torch.where(valid, node_score[bb, nd], 0)
+    e_new, ns_new = score_scan_plain(
+        start_score.to(torch.int32), valid, sl.to(torch.int32), es_rows, ea_rows, comp_rows,
+        ns_rows,
+    )
+    e_old = es_rows.gather(2, sl[..., None]).squeeze(-1)
+    # a path visits a node at most once, so each (node, slot) gets at most
+    # one real claim; adding new - old lands it exactly
+    edge_score.index_put_(
+        (bb, nd, sl), torch.where(valid & (e_new != e_old), e_new - e_old, 0), accumulate=True,
+    )
+    node_score.index_put_(
+        (bb, nd), torch.where(valid & (ns_new != ns_rows), ns_new - ns_rows, 0), accumulate=True,
+    )
+
+
+def score_backup(edge_score, edge_action, node_complete, node_score, pn, ps, start_score):
+    """Proven-score backup of one path per board, in place on the tree:
+    the CUDA kernel for CUDA tensors, `score_backup_plain` for CPU
+    tensors.  edge_score, edge_action [B, N, K] int32 (edge_action NULL
+    for an empty slot); node_complete [B, N] bool; node_score [B, N]
+    int32; pn, ps [B, D] int64, the path's node and slot per level (NULL
+    past the path); start_score [B] int32, the leaf's score."""
+    B, N, K = edge_score.shape
+    D = pn.shape[1]
+    if pn.shape[0] != B:
+        raise ValueError(
+            f"score_backup: {pn.shape[0]} paths for {B} trees; one path per board only "
+            "(leaf_batch > 1 needs the claim dedup, ROADMAP.md item 10)"
+        )
+    dev = edge_score.device
+    what = "score_backup"
+    _check("edge_score", edge_score, torch.int32, (B, N, K), dev, what)
+    _check("edge_action", edge_action, torch.int32, (B, N, K), dev, what)
+    _check("node_complete", node_complete, torch.bool, (B, N), dev, what)
+    _check("node_score", node_score, torch.int32, (B, N), dev, what)
+    _check("pn", pn, torch.int64, (B, D), dev, what)
+    _check("ps", ps, torch.int64, (B, D), dev, what)
+    _check("start_score", start_score, torch.int32, (B,), dev, what)
+    if dev.type == "cpu":
+        score_backup_plain(edge_score, edge_action, node_complete, node_score, pn, ps, start_score)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"score_backup: unsupported device {dev}")
+    _check_lanes(K, what)
+    err = _build.library().ag_score_backup(
+        edge_score.data_ptr(), edge_action.data_ptr(), node_complete.data_ptr(),
+        node_score.data_ptr(), pn.data_ptr(), ps.data_ptr(), start_score.data_ptr(),
+        B, N, D, K, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, what)
+    score_backup.launches += 1
+
+
+score_backup.launches = 0
+
+
+def scan_occupancy(D: int = 16) -> dict:
+    """What the current card gives the kernels launched at depth D, by
+    entry point: blocks per SM, registers per thread, static shared memory
+    per block (bytes) and local memory per thread (bytes; spills)."""
+    out = {}
+    for backup, name in ((0, "score_scan"), (1, "score_backup")):
+        info = (ctypes.c_int * 4)()
+        _build.check(_build.library().ag_score_scan_occupancy(backup, D, info), "scan_occupancy")
+        out[name] = dict(zip(("blocks_per_sm", "registers", "smem_bytes", "local_bytes"), info))
+    return out

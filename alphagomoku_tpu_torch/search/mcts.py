@@ -17,7 +17,7 @@ EdgeSelector,EdgeGenerator}.cpp), as in the reference package:
   edges pinned (EdgeSelector.cpp:389-424);
 - edge visits and values are derived from the child node (graph-MCTS
   statistics through transpositions); edge scores are stored and
-  minimax-updated in the backup (`ops/score_scan.py`);
+  minimax-updated in the backup (`ops/score_scan.py:score_backup`);
 - transpositions: every node stores its 64-bit zobrist hash and expansion
   probes the existing nodes first, so the tree is a DAG.
 
@@ -45,7 +45,7 @@ from ..game.types import CROSS, CIRCLE, GameOutcome
 from ..game import vectorized as V
 from ..models.networks import postprocess
 from ..patterns import features as F
-from ..ops.score_scan import score_scan
+from ..ops.score_scan import score_backup
 from . import score as S
 from . import static_solver
 from . import vct_batched
@@ -590,26 +590,10 @@ def make_simulate_fn(
                 (bb, nd), torch.where(valid, ml, 0.0), accumulate=True
             )
 
-            # -- BACKUP B: proven-score minimax along the path (kernel) -----
-            sl = torch.where(valid, ps, 0)
-            es_rows = torch.where(valid[..., None], tree.edge_score[bb, nd], 0)
-            ea_rows = (tree.edge_action[bb, nd] != NULL) & valid[..., None]
-            comp_rows = tree.node_complete[bb, nd] & valid
-            ns_rows = torch.where(valid, tree.node_score[bb, nd], 0)
-            e_new, ns_new = score_scan(
-                start_score.to(torch.int32), valid, sl.to(torch.int32), es_rows, ea_rows,
-                comp_rows, ns_rows,
-            )
-            e_old = es_rows.gather(2, sl[..., None]).squeeze(-1)
-            # a path visits a node at most once, so each (node, slot) gets at
-            # most one real claim; adding new - old lands it exactly
-            tree.edge_score.index_put_(
-                (bb, nd, sl), torch.where(valid & (e_new != e_old), e_new - e_old, 0),
-                accumulate=True,
-            )
-            tree.node_score.index_put_(
-                (bb, nd), torch.where(valid & (ns_new != ns_rows), ns_new - ns_rows, 0),
-                accumulate=True,
+            # -- BACKUP B: proven-score minimax along the path, in place ---
+            score_backup(
+                tree.edge_score, tree.edge_action, tree.node_complete, tree.node_score, pn, ps,
+                start_score.to(torch.int32),
             )
 
         st = state.stats

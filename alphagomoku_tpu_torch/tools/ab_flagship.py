@@ -14,7 +14,9 @@ C = 128, L = 8) it times the trunk kernel on the stem's output of the bench
 boards (B = 1280: CUDA events around 20 launches back to back, median of 3,
 as `chip_smoke.py` does), runs one `run_search` of 800 simulations at
 the bench configuration and traces 5 more steps of it under
-torch.profiler (`chip_smoke.profile_steps`); it prints one JSON line.  The last line gives the
+torch.profiler (`chip_smoke.profile_steps`: wall, device-busy and host ms
+per phase, kernel launches per step in all and in `mcts.backup`); it
+prints one JSON line.  The last line gives the
 medians of each checkout's runs and their ratio B / A.
 """
 
@@ -35,6 +37,9 @@ SIMS = 800
 TIMED = tuple(k + sfx for sfx in ("", "_128") for k in (
     "trunk_ms", "ms_per_step", "traced_ms", "busy_ms", "host_ms_select", "host_ms_evaluate",
     "host_ms_expand", "host_ms_backup"))
+# counts read from the same traced steps: kernel launches per step, in all
+# and in the backup phase
+COUNTED = tuple(k + sfx for sfx in ("", "_128") for k in ("launches", "launches_backup"))
 
 # Run in a checkout's root: uses only what that checkout's package and
 # chip_smoke.py have offered since the C = 128 trunk came in.
@@ -90,6 +95,8 @@ for sfx, net in nets.items():
     prof = json.loads(cs.profile_steps(simulate, weights, state, 5).split(":", 1)[1])
     res.update({"traced_ms" + sfx: prof["wall_ms_per_step"],
                 "busy_ms" + sfx: prof["device_busy_ms_per_step"],
+                "launches" + sfx: prof["kernel_launches_per_step"],
+                "launches_backup" + sfx: prof["phases"]["mcts.backup"]["launches"],
                 **{"host_ms_" + k.split(".")[1] + sfx: v["host_ms"]
                    for k, v in prof["phases"].items() if v["launches"]}})
     del state, weights, net
@@ -116,7 +123,8 @@ def main() -> int:
         res = run(getattr(args, tag).resolve(), SIMS)
         runs[tag].append(res)
         print(json.dumps({"checkout": tag, **res}), flush=True)
-    med = {tag: {k: statistics.median(r[k] for r in rs) for k in TIMED} for tag, rs in runs.items()}
+    med = {tag: {k: statistics.median(r[k] for r in rs) for k in TIMED + COUNTED}
+           for tag, rs in runs.items()}
     print(json.dumps({"median": med, "b_over_a": {
         k: med["b"][k] / med["a"][k] for k in TIMED}}), flush=True)
     return 0

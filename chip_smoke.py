@@ -7,38 +7,48 @@ Phases, one line each (any failure exits non-zero):
   1. device  - needs CUDA; prints nvidia-smi's name and power limit;
   2. build   - builds the CUDA kernels (csrc/*.cu -> build/torch_kernels/);
   3. score_scan  - kernel vs plain version on the card, bit-equal, at the
-     bench shape R = 1280, D = 16, K = 32, with timings;
-  4. fused_trunk - kernel vs plain version at B = 1280, C = 64, L = 6 with
+     bench shape R = 1280, D = 16, K = 32, with timings, and what the
+     scan kernels get from the card (`score_scan.scan_occupancy`:
+     registers, blocks per SM, spills, which must be 0);
+  4. score_backup - kernel vs plain version on clones of random trees at
+     the bench shape (B = 1280, N = 808, D = 16, K = 32), the whole trees
+     bit-equal, with timings (the rows in L2 and, `cold_ms`, after a
+     write of 128 MB that evicts them) and its bytes bound at full D and
+     at this input's valid levels;
+  5. fused_trunk - kernel vs plain version at B = 1280, C = 64, L = 6 with
      the flagship network_23 weights, in bf16 ulps (utils/bf16.py): all
      six blocks, each block alone, and kernels fed one bias left out, which
      the check must reject; timings, the bound, the same trunk through
      cuDNN/cuBLAS (bf16 conv2d + matmul) as a yardstick, and what the kernel
      gets from the card (registers per thread, CTAs per SM, shared memory
      per CTA, spills: `convnext_fused.trunk_occupancy`);
-  5. network - the full fused forward (kernel trunk) vs the same forward
+  6. network - the full fused forward (kernel trunk) vs the same forward
      with the plain trunk, head by head, in bf16 ulps of at least 1/16
      (`HEAD_LIMITS`);
-  6. search  - mcts.run_search, 800 simulations, at the bench configuration (6x64
+  7. search  - mcts.run_search, 800 simulations, at the bench configuration (6x64
      network_23, batch 1280, max_nodes 808, max_edges 32, max_depth 16,
-     freestyle 15x15, bench boards from seed 0), with both kernels' launch
-     counts read around it;
-  7. profile - 5 more steps of the same search under torch.profiler: the
+     freestyle 15x15, bench boards from seed 0), with the kernels' launch
+     counts read around it; then score_backup held against its plain
+     version on clones of that search's tree, on paths walked from each
+     root down the most-visited edges, timed the same way;
+  8. profile - 5 more steps of the same search under torch.profiler: the
      device's busy share, kernel launches per step, and host and device
      milliseconds per step of each phase of the step;
-  8. fused_trunk 128 - phase 4 at C = 128, L = 8 with the seeded 8x128
+  9. fused_trunk 128 - phase 5 at C = 128, L = 8 with the seeded 8x128
      network (`models.networks.init_random_`, seed 0);
-  9. network 128 - phase 5 with the 8x128 network;
- 10. search 8x128 - phases 6 and 7 with the 8x128 network (`WIDE_SIMS`
+ 10. network 128 - phase 6 with the 8x128 network;
+ 11. search 8x128 - phases 7 and 8 with the 8x128 network (`WIDE_SIMS`
      sims);
- 11. search strength - phase 6 with network_23 and the VCT leaf solver at
+ 12. search strength - phase 7 with network_23 and the VCT leaf solver at
      the engine default (steps 16, cap 256, depth 6, threes 2;
      `STRENGTH_SIMS` sims), with the roots and leaves it proves;
- 12. profile strength - phase 7 for the strength search, `mcts.solve` as
+ 13. profile strength - phase 8 for the strength search, `mcts.solve` as
      its own phase;
 then a `kernels` JSON line and, last, {"ok": true, "device": {...}}.
 
-A kernel's `ms` is its device time per launch: for score_scan as
-torch.profiler traces it, for the trunk (2.8 ms and more a launch) by CUDA
+A kernel's `ms` is its device time per launch: for score_scan and
+score_backup as torch.profiler traces it (score_backup's on the flagship
+tree's paths), for the trunk (2.8 ms and more a launch) by CUDA
 events around 20 launches back to back, where the host's time to enqueue
 them hides behind the device's work.  `call_ms`, `plain_ms` and
 `library_ms` are CUDA-event times of whole calls (median of 20), which
@@ -128,6 +138,100 @@ def random_scan_inputs(R: int, D: int, K: int, seed: int):
     return start, valid, sl, es, ea, comp, ns
 
 
+def random_backup_inputs(B: int, N: int, D: int, K: int, seed: int):
+    """Trees of B boards with N nodes of K edge slots and one path of D
+    levels per board, from `random_scan_inputs`' generator (as
+    tests/test_torch_score_backup.py makes them): the tree's rows are its
+    [B, N(, K)] draws, inactive slots get NULL actions, the path takes
+    distinct nodes up to its valid prefix and its `sl` as slots."""
+    import numpy as np
+
+    start, valid, sl, _, _, _, _ = random_scan_inputs(B, D, K, seed)
+    _, _, _, es, ea, comp, ns = random_scan_inputs(B, N, K, seed + 1000)
+    rng = np.random.default_rng(seed + 2000)
+    actions = np.where(ea, rng.integers(0, H * W, size=ea.shape), -1).astype(np.int32)
+    nodes = np.argsort(rng.random((B, N)), axis=1)[:, :D]
+    pn = np.where(valid, nodes, -1).astype(np.int64)
+    ps = np.where(valid, sl, -1).astype(np.int64)
+    return dict(edge_score=es, edge_action=actions, node_complete=comp, node_score=ns, pn=pn,
+                ps=ps, start_score=start)
+
+
+def most_visited_paths(tree, depth: int):
+    """Paths [B, depth] (pn, ps; -1 past the path) from each root down the
+    most-visited expanded edge, and the score of the node each ends at."""
+    import torch
+
+    rb = torch.arange(tree.batch, device=tree.node_score.device)
+    cur = torch.zeros_like(rb)
+    alive = torch.ones_like(rb, dtype=torch.bool)
+    pn = torch.full((tree.batch, depth), -1, dtype=torch.int64, device=rb.device)
+    ps = torch.full_like(pn, -1)
+    for d in range(depth):
+        child = tree.edge_child[rb, cur].long()
+        visits = torch.where(child >= 0, tree.node_visits[rb[:, None], child.clamp(min=0)], -1)
+        slot = visits.argmax(-1)
+        alive &= visits.amax(-1) > 0
+        pn[:, d] = torch.where(alive, cur, -1)
+        ps[:, d] = torch.where(alive, slot, -1)
+        cur = torch.where(alive, child[rb, slot], cur)
+    return pn, ps, tree.node_score[rb, cur]
+
+
+def backup_bytes(pn, K: int) -> int:
+    """The bytes score_backup must move at the port's int32 storage: per
+    path pn and ps (int64) and the start score; per valid level the edge
+    score and action rows, the node's complete flag and score, and the
+    two 4-byte writes."""
+    levels = int((pn != -1).sum())
+    return pn.shape[0] * (2 * 8 * pn.shape[1] + 4) + levels * (2 * 4 * K + 1 + 4 + 2 * 4)
+
+
+def backup_phase(tree: dict, tag: str) -> dict:
+    """score_backup against score_backup_plain on clones of `tree` (a dict
+    of its seven arguments), the whole trees bit-equal; its device time
+    with the rows in L2 and after a 128 MB write that evicts them, its
+    call and plain times, and its bytes bound at this input's valid levels
+    and at full depth."""
+    import torch
+    from alphagomoku_tpu_torch.ops import score_scan as SSM
+
+    names = ("edge_score", "edge_action", "node_complete", "node_score", "pn", "ps",
+             "start_score")
+    kernel_tree = {k: tree[k].clone() for k in names}
+    plain_tree = {k: tree[k].clone() for k in names}
+    SSM.score_backup(*(kernel_tree[k] for k in names))
+    SSM.score_backup_plain(*(plain_tree[k] for k in names))
+    torch.cuda.synchronize()
+    differ = [k for k in names if not torch.equal(kernel_tree[k], plain_tree[k])]
+    if differ:
+        raise SystemExit(f"{tag}: kernel disagrees with the plain version in {differ}")
+    changed = int((plain_tree["edge_score"] != tree["edge_score"]).sum()
+                  + (plain_tree["node_score"] != tree["node_score"]).sum())
+    del plain_tree
+    args = [kernel_tree[k] for k in names]
+    flush = torch.empty(32 << 20, dtype=torch.int32, device=args[0].device)
+    ms = kernel_device_ms(lambda: SSM.score_backup(*args), "score_backup_kernel")
+    cold_ms = kernel_device_ms(lambda: (flush.zero_(), SSM.score_backup(*args)),
+                               "score_backup_kernel")
+    call_ms = time_cuda(lambda: SSM.score_backup(*args))
+    plain_ms = time_cuda(lambda: SSM.score_backup_plain(*args))
+    pn, K = tree["pn"], tree["edge_score"].shape[2]
+    nbytes = backup_bytes(pn, K)
+    full_bytes = backup_bytes(torch.zeros_like(pn), K)
+    bound_ms = nbytes / HBM_BPS * 1e3
+    bound_full_ms = full_bytes / HBM_BPS * 1e3
+    B, N, _ = tree["edge_score"].shape
+    levels = int((pn != -1).sum())
+    print(f"{tag}: bit-equal at B={B} N={N} D={pn.shape[1]} K={K} ({levels} valid levels, "
+          f"{changed} scores changed); kernel {ms:.5f} ms on the device with the rows in L2, "
+          f"{cold_ms:.5f} ms after evicting them ({call_ms:.4f} ms a call), plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms at these valid levels ({nbytes} bytes), "
+          f"{bound_full_ms:.5f} ms at full depth ({full_bytes} bytes)", flush=True)
+    return dict(ms=ms, cold_ms=cold_ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_full_depth_ms=bound_full_ms, valid_levels=levels, changed=changed)
+
+
 def library_trunk(x, tw):
     """The fused trunk's function through PyTorch's library calls (bf16
     depthwise conv2d + matmul): a yardstick, never used by the port."""
@@ -208,9 +312,12 @@ def _device_kernels(prof):
 
 def kernel_device_ms(fn, kernel: str, reps: int = 20) -> float:
     """Mean device milliseconds per launch of the CUDA kernel whose name
-    contains `kernel`, over `reps` traced calls of `fn` (after one warm-up
-    call).  Unlike CUDA events around a call, this leaves out the host's
-    time to enqueue the launch."""
+    contains `kernel`, over the launches that torch.profiler traced in
+    `reps` calls of `fn` (after one warm-up call).  Unlike CUDA events
+    around a call, this leaves out the host's time to enqueue the launch.
+    The profiler may miss a few launches of a kernel of a few microseconds
+    (4 of 20 once, after an 800-sim search): the mean is over those it
+    traced, and more than `reps` traced, or fewer than half, is a fault."""
     import torch
 
     fn()
@@ -218,10 +325,12 @@ def kernel_device_ms(fn, kernel: str, reps: int = 20) -> float:
     prof, _ = _traced(fn, reps)
     hits = [e for e in _device_kernels(prof) if kernel in e.key]
     traced = sum(e.count for e in hits)
-    if traced != reps:
+    if not reps // 2 <= traced <= reps:
         raise SystemExit(f"profiler: {traced} launches of {kernel} traced in {len(hits)} "
                          f"entries, expected {reps}: {[(e.key, e.count) for e in hits]}")
-    return sum(e.self_device_time_total for e in hits) / reps / 1e3
+    if traced < reps:
+        print(f"profiler: {traced} of {reps} launches of {kernel} traced", flush=True)
+    return sum(e.self_device_time_total for e in hits) / traced / 1e3
 
 
 def _launched(event) -> tuple[int, float]:
@@ -261,7 +370,7 @@ def profile_steps(simulate, weights, state, steps: int) -> str:
             ph["launches"] += n / steps
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     traced = {k: sum(e.count for e in kernels if k in e.key)
-              for k in ("convnext_trunk", "score_scan_kernel")}
+              for k in ("convnext_trunk", "score_scan_kernel", "score_backup_kernel")}
     return "profile: " + json.dumps({
         "traced_launches": traced,
         "steps": steps, "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
@@ -379,6 +488,7 @@ def search_phase(weights, tables, cfg, boards, stm, sims: int, tag: str):
     from alphagomoku_tpu_torch.search import score as S
 
     SSM.score_scan.launches = 0
+    SSM.score_backup.launches = 0
     CF.fused_trunk.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -387,8 +497,9 @@ def search_phase(weights, tables, cfg, boards, stm, sims: int, tag: str):
     move = mcts.select_move(state)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"score_scan": SSM.score_scan.launches, "fused_trunk": CF.fused_trunk.launches}
-    if launches != {"score_scan": sims, "fused_trunk": sims + 1}:
+    launches = {"score_scan": SSM.score_scan.launches, "score_backup": SSM.score_backup.launches,
+                "fused_trunk": CF.fused_trunk.launches}
+    if launches != {"score_scan": 0, "score_backup": sims, "fused_trunk": sims + 1}:
         raise SystemExit(f"{tag}: the kernels were not launched once per step inside "
                          f"run_search: {launches}")
     tree = state.tree
@@ -405,7 +516,7 @@ def search_phase(weights, tables, cfg, boards, stm, sims: int, tag: str):
     summary = state.stats.summary(state.sims_done)
     print(f"{tag}: {sims} sims x batch {BATCH} in {dt:.3f} s = {BATCH * sims / dt:.1f} sims/s, "
           f"{dt / sims * 1e3:.3f} ms per simulation step; launches {launches}, "
-          f"{sum(launches.values()) / sims:.4f} of the two kernels per step; "
+          f"{sum(launches.values()) / sims:.4f} of the kernels per step; "
           f"proven roots {int(root_proven.sum())}; node_count {int(tree.node_count.max())}; "
           f"avg depth {summary['avg_depth']:.3f}, transpositions {summary['transpositions']:.0f}, "
           f"solver-proven leaves {summary['solver_wins']:.0f}", flush=True)
@@ -455,7 +566,9 @@ def main() -> int:
 
     kernels = []
 
-    # 3. score_scan at the bench shape
+    # 3. score_scan at the bench shape (not on the search's path since
+    # score_backup took backup B over; held here as the Pallas kernel's
+    # interface on the same scan core)
     R, D, K = BATCH, 16, 32
     start, valid, sl, es, ea, comp, ns = (
         torch.from_numpy(a).to(dev) for a in random_scan_inputs(R, D, K, seed=0)
@@ -480,14 +593,27 @@ def main() -> int:
           f"{scan_bound_ms:.5f} ms ({scan_bytes} bytes at u16 scores; "
           f"{stored_bytes / HBM_BPS * 1e3:.5f} ms at the port's int32 storage, "
           f"{stored_bytes} bytes)", flush=True)
+    occupancy = {f"D={d}": SSM.scan_occupancy(d) for d in (D, 48)}
+    print("score_scan occupancy: " + "; ".join(
+        f"{name} at {depth}: {o['registers']} registers per thread, {o['blocks_per_sm']} "
+        f"blocks per SM, {o['local_bytes']} bytes of local memory (spills) per thread"
+        for depth, occ in occupancy.items() for name, o in occ.items()), flush=True)
+    if any(o["local_bytes"] for occ in occupancy.values() for o in occ.values()):
+        raise SystemExit(f"score_scan: a scan kernel spills to local memory: {occupancy}")
     kernels.append(dict(
         name="score_scan", route="cuda", source="alphagomoku_tpu_torch/csrc/score_scan.cu",
         replaces="alphagomoku_tpu/ops/score_scan.py:111", status="bit-equal", max_abs_err=0.0,
         ms=scan_ms, call_ms=scan_call_ms, plain_ms=scan_plain_ms, bound_ms=scan_bound_ms,
-        bound_by="bytes", library_ms=None,
+        bound_by="bytes", library_ms=None, **occupancy[f"D={D}"]["score_scan"],
     ))
 
-    # 4. fused_trunk at B = 1280, C = 64, L = 6 with network_23
+    # 4. score_backup on random trees at the bench shape
+    rand_tree = {k: torch.from_numpy(v).to(dev) for k, v in
+                 random_backup_inputs(BATCH, 808, D, K, seed=1).items()}
+    backup_random = backup_phase(rand_tree, "score_backup")
+    del rand_tree
+
+    # 5. fused_trunk at B = 1280, C = 64, L = 6 with network_23
     net = network_from_flax(checkpoint.load(CKPT)).to(dev)
     weights = CF.pack_weights(net)
     tables = V.device_tables(GameRules.FREESTYLE)
@@ -496,27 +622,44 @@ def main() -> int:
     planes = FEAT.unpack_raw_planes(FEAT.encode(tables, boards, stm))
     trunk64 = trunk_phase(net, planes, "fused_trunk")
 
-    # 5. network: fused forward, kernel trunk vs plain trunk
+    # 6. network: fused forward, kernel trunk vs plain trunk
     network_phase(weights, planes, "network")
 
-    # 6. search at the bench configuration
+    # 7. search at the bench configuration, and score_backup on its tree
     cfg = mcts.MCTSConfig(max_nodes=808, max_edges=32, max_depth=16)
     state, launches = search_phase(weights, tables, cfg, boards, stm, SIMS, "search")
     paths = {"flagship": launches}
+    tree = state.tree
+    pn, ps, leaf_score = most_visited_paths(tree, cfg.max_depth)
+    # half the paths start from their leaf's score, half from the random
+    # generator's proven and unknown scores
+    rand_start = torch.from_numpy(random_scan_inputs(BATCH, 1, K, seed=2)[0]).to(dev)
+    start = torch.where(torch.arange(BATCH, device=dev) % 2 == 0, leaf_score, rand_start)
+    backup_flagship = backup_phase(dict(
+        edge_score=tree.edge_score, edge_action=tree.edge_action,
+        node_complete=tree.node_complete, node_score=tree.node_score, pn=pn, ps=ps,
+        start_score=start), "score_backup on the flagship tree")
+    kernels.append(dict(
+        name="score_backup", route="cuda", source="alphagomoku_tpu_torch/csrc/score_scan.cu",
+        replaces="alphagomoku_tpu/ops/score_scan.py:111", status="bit-equal", max_abs_err=0.0,
+        bound_by="bytes", library_ms=None, **backup_flagship, random_trees=backup_random,
+        **occupancy[f"D={D}"]["score_backup"],
+    ))
+    del tree, pn, ps, leaf_score, start
 
-    # 7. profile: the next steps of the same search, traced
+    # 8. profile: the next steps of the same search, traced
     simulate = mcts.make_simulate_fn(CF.fused_apply, tables, cfg)
     print(profile_steps(simulate, weights, state, PROFILE_STEPS), flush=True)
     del state, simulate
 
-    # 8-9. the trunk and the network at C = 128 (8x128, seeded weights)
+    # 9-10. the trunk and the network at C = 128 (8x128, seeded weights)
     wide_net = init_random_(create_network("ConvNextPVQMraw", blocks=8, filters=128),
                             torch.Generator().manual_seed(WIDE_SEED)).to(dev).eval()
     wide_weights = CF.pack_weights(wide_net)
     trunk128 = trunk_phase(wide_net, planes, "fused_trunk 128")
     network_phase(wide_weights, planes, "network 128")
 
-    # 10. the 8x128 search
+    # 11. the 8x128 search
     state, paths["8x128"] = search_phase(wide_weights, tables, cfg, boards, stm, WIDE_SIMS,
                                          "search 8x128")
     simulate = mcts.make_simulate_fn(CF.fused_apply, tables, cfg)
@@ -524,7 +667,7 @@ def main() -> int:
         "profile:", "profile 8x128:"), flush=True)
     del state, simulate
 
-    # 11. the strength search: network_23 and the VCT leaf solver (bench.py's
+    # 12. the strength search: network_23 and the VCT leaf solver (bench.py's
     # strength configuration)
     scfg = cfg._replace(leaf_solver="vct", leaf_solver_steps=16, leaf_solver_cap=256)
     roots = vct_batched.solve(tables, boards, stm, max_depth=scfg.leaf_solver_depth,
@@ -535,7 +678,7 @@ def main() -> int:
     state, paths["strength"] = search_phase(weights, tables, scfg, boards, stm, STRENGTH_SIMS,
                                             "search strength")
 
-    # 12. profile of the strength search
+    # 13. profile of the strength search
     simulate = mcts.make_simulate_fn(CF.fused_apply, tables, scfg)
     print(profile_steps(simulate, weights, state, PROFILE_STEPS).replace(
         "profile:", "profile strength:"), flush=True)
