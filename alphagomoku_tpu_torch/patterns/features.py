@@ -1,13 +1,12 @@
 """NN input features: 32 bit-planes per cell, packed in one word.
 
-Port of the reference package's `patterns/features.py` (non-renju).  The
-bit layout is the reference's (src/networks/NNInputFeatures.cpp:66-111):
+Port of the reference package's `patterns/features.py`.  The bit layout is the reference's (src/networks/NNInputFeatures.cpp:66-111):
 
     bit 0     legal move (cell empty)
     bit 1     own stone            bit 2   opponent stone
     bit 3     ones                 bit 7   zeros
     bit 4     cross to move        bit 5   circle to move
-    bit 6     forbidden move (renju, cross to move only; not ported)
+    bit 6     forbidden move (renju, cross to move only)
     bits  8-11  own open three, one bit per direction (H, V, D, AD)
     bits 12-15  own half-open four, one bit per direction
     bit 16    own open four        bit 17  own double four
@@ -44,11 +43,13 @@ def _player_group(pts: torch.Tensor) -> torch.Tensor:
 
 
 def encode(
-    tables: V.RuleTables, board: torch.Tensor, sign_to_move: torch.Tensor
+    tables: V.RuleTables, board: torch.Tensor, sign_to_move: torch.Tensor,
+    forbidden_depth: int = 2,
 ) -> torch.Tensor:
     """Packed int64 feature map [B, H, W] from int8 boards [B, H, W] and
-    side-to-move [B]."""
-    V.check_rules(tables)
+    side-to-move [B]; under renju, bit 6 marks the cells forbidden for
+    cross (`vectorized.forbidden_plane` at `forbidden_depth`) on boards
+    where cross is to move."""
     own_is_cross = (sign_to_move == CROSS)[:, None, None]  # [B, 1, 1]
 
     wins = V.windows_all(board).permute(0, 2, 3, 1)  # [B, H, W, 4]
@@ -67,7 +68,11 @@ def encode(
     opp_stone = torch.where(own_is_cross, board == CIRCLE, board == CROSS)
     out = out | empty.long()
     out = out | (own_stone.long() << 1)
-    return out | (opp_stone.long() << 2)
+    out = out | (opp_stone.long() << 2)
+    if tables.rules == GameRules.RENJU:
+        forb, _ = V.forbidden_plane_u(tables, board, forbidden_depth, pts_cross=pt_cross)
+        out = out | ((forb & own_is_cross).long() << 6)
+    return out
 
 
 def unpack_planes(packed: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:

@@ -5,7 +5,8 @@ A copy of the rule definitions of the reference package's
 `patterns/tables.py`: the matching-rule mini-DSL (`_parse`, `_wrap_*`,
 `_classifier_rules`, `_PRIORITY`), the `PT_*` / `TT_*` codes, and the
 8^4-entry threat table (`_threat_of`, `_build_threat_table`), built in
-memory.  The port classifies windows with bit math compiled from these
+memory, and the open-three promotion data of the renju forbidden check
+(`_PROMO_*`).  The port classifies windows with bit math compiled from these
 rules (`patterns/bitwise.py`, which also builds the 4^10 pattern table from
 that bit math), so the reference package's numpy build of that table is
 not copied and nothing is cached on disk.
@@ -281,3 +282,18 @@ def _build_threat_table(rules: GameRules) -> np.ndarray:
     out = (cross | (circle << 4)).astype(np.uint8)
     out.flags.writeable = False
     return out
+
+
+# ---------------------------------------------------------------------------
+# Open-three promotion spots (renju forbidden check): for the first of 12
+# (window & mask) == pattern matches, an 11-bit mask of the spots that may
+# promote the open three made at the center into a straight four.  Data
+# replicated from the reference (src/patterns/DefensiveMoveTable.cpp:
+# 329-341); candidates are validated against the board downstream, so an
+# over-approximation is harmless.
+# ---------------------------------------------------------------------------
+
+_PROMO_PATTERNS = (320, 4352, 20480, 80, 16640, 69632, 272, 4160, 81920, 320, 4352, 20480)
+_PROMO_MASKS = (65520, 262080, 1048320, 16380, 262080, 1048320, 16380, 65520, 1048320,
+                16380, 65520, 262080)
+_PROMO_RESULTS = (196, 392, 784, 82, 328, 656, 74, 148, 592, 70, 140, 280)

@@ -1,10 +1,10 @@
 """Primitives of the lockstep batched solvers.
 
-Port of the reference package's `search/lockstep.py`.  The VCT solver
-(`search/vct_batched.py`) advances a struct-of-arrays state one transition
-at a time over a batch of boards; these are its board mutations, its
-fixed-stack frame reads and writes, its position hash and its threat
-planes.  The reference package writes every read and write as a one-hot
+Port of the reference package's `search/lockstep.py`.  The VCT and VCF
+solvers (`search/vct_batched.py`, `search/vcf.py`) advance a
+struct-of-arrays state one transition at a time over a batch of boards;
+these are their board mutations, their fixed-stack frame reads and
+writes, their position hash and their threat planes.  The reference package writes every read and write as a one-hot
 masked select or reduce (per-row gathers serialize on a TPU); here they
 are gathers and functional index writes with the same results.  Reads and
 writes at an index outside the array (a move of -1, a ply outside the
@@ -174,10 +174,15 @@ def five_plane(pts: torch.Tensor, empty: torch.Tensor) -> torch.Tensor:
     return (pts == T.PT_FIVE).any(-1) & empty
 
 
-def actor_planes(pts: torch.Tensor, empty: torch.Tensor) -> dict:
+def actor_planes(pts: torch.Tensor, empty: torch.Tensor, is_cross_actor=False,
+                 renju: bool = False) -> dict:
     """Threat planes for one actor from its PatternType planes [B,H,W,4]
-    (reference: MoveGenerator threat staging; renju's restrictions on
-    black are not ported).  All entries are [B, H, W] (n3 counts)."""
+    (reference: MoveGenerator threat staging); under renju black is
+    restricted (rules.cpp forbidden classes), `is_cross_actor` a bool
+    broadcastable to [B, H, W].  All entries are [B, H, W] (n3 counts);
+    renju adds `certain_forb` (overline, a double-four line or fours in
+    two directions: forbidden without the 3x3 recursion) and
+    `maybe_forb` (those and the naive 3x3 forks)."""
     five = (pts == T.PT_FIVE).any(-1) & empty
     n4 = ((pts == T.PT_HALF_OPEN_4) | (pts == T.PT_OPEN_4) | (pts == T.PT_DOUBLE_4)).sum(-1)
     any_d4 = (pts == T.PT_DOUBLE_4).any(-1)
@@ -186,7 +191,14 @@ def actor_planes(pts: torch.Tensor, empty: torch.Tensor) -> dict:
     four = (n4 >= 1) & empty
     win3 = (any_o4 | any_d4 | (n4 + any_o4.to(n4.dtype) >= 2)) & empty
     three = (n3 >= 1) & empty
-    return dict(five=five, four=four, win3=win3, three=three, n3=n3)
+    if not renju:
+        return dict(five=five, four=four, win3=win3, three=three, n3=n3)
+    certain = ((pts == T.PT_OVERLINE).any(-1) | any_d4 | (n4 >= 2)) & is_cross_actor
+    maybe = certain | ((n3 >= 2) & is_cross_actor)
+    # black's double-four and 4x4 forks are forbidden, not wins
+    win3 = torch.where(torch.as_tensor(is_cross_actor, device=pts.device), any_o4 & empty, win3)
+    return dict(five=five, four=four & ~certain, win3=win3, three=three & ~maybe, n3=n3,
+                certain_forb=certain, maybe_forb=maybe)
 
 
 def pts_at_cell(pts: torch.Tensor, move_b: torch.Tensor) -> torch.Tensor:

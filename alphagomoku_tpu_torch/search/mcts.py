@@ -1,12 +1,14 @@
 """Batched MCTS: fixed-capacity array trees, one tree per board, advanced
 in lockstep by one simulation per tree per step.
 
-Port of the reference package's `search/mcts.py` at its defaults:
+Port of the reference package's `search/mcts.py` under all five rules at
 `policy="puct"`, `init_to="parent"`, `leaf_batch=1`, no root noise, no
 symmetry averaging, no NNUE; transpositions on (or off); the leaf solver
-off or `leaf_solver="vct"` (the engine default, `search/vct_batched.py`)
-without the loss prover.  Other configuration values raise
-NotImplementedError (`check_config`).
+off, `leaf_solver="vcf"` (`search/vcf.py`) or `"vct"` (the engine default,
+`search/vct_batched.py`), with or without the loss prover
+(`vct_batched.prepare_loss` / `finish_loss` at the leaves, `solve_loss` at
+the roots).  Other configuration values raise NotImplementedError
+(`check_config`).
 
 Mapping to the reference (src/search/monte_carlo/{Tree,Search,Node,Edge,
 EdgeSelector,EdgeGenerator}.cpp), as in the reference package:
@@ -48,6 +50,7 @@ from ..patterns import features as F
 from ..ops.score_scan import score_backup
 from . import score as S
 from . import static_solver
+from . import vcf
 from . import vct_batched
 from . import zobrist
 
@@ -85,24 +88,22 @@ class MCTSConfig(NamedTuple):
     draw_after: int = 0
 
 
-_NOT_PORTED = "(ROADMAP.md, 'Modules to port', item {}: not ported yet)"
+_NOT_PORTED = "(ROADMAP.md, 'Modules to port', item 10: not ported yet)"
 
 
 def check_config(cfg: MCTSConfig) -> None:
     """Raise NotImplementedError for configuration values outside the
     ported slice."""
     checks = [
-        (cfg.policy == "puct", f"policy={cfg.policy!r}", 10),
-        (cfg.init_to == "parent", f"init_to={cfg.init_to!r}", 10),
-        (cfg.leaf_batch == 1, f"leaf_batch={cfg.leaf_batch}", 10),
-        (cfg.noise_weight == 0.0, f"noise_weight={cfg.noise_weight}", 10),
-        (not cfg.symmetry_averaging, "symmetry_averaging", 10),
-        (cfg.leaf_solver in ("none", "vct"), f"leaf_solver={cfg.leaf_solver!r}", "9a"),
-        (not cfg.loss_prover, "loss_prover", "9b"),
+        (cfg.policy == "puct", f"policy={cfg.policy!r}"),
+        (cfg.init_to == "parent", f"init_to={cfg.init_to!r}"),
+        (cfg.leaf_batch == 1, f"leaf_batch={cfg.leaf_batch}"),
+        (cfg.noise_weight == 0.0, f"noise_weight={cfg.noise_weight}"),
+        (not cfg.symmetry_averaging, "symmetry_averaging"),
     ]
-    for ok, what, item in checks:
+    for ok, what in checks:
         if not ok:
-            raise NotImplementedError(f"MCTSConfig {what} " + _NOT_PORTED.format(item))
+            raise NotImplementedError(f"MCTSConfig {what} " + _NOT_PORTED)
     if cfg.max_nodes < 2 or cfg.max_edges < 1 or cfg.max_depth < 1:
         raise ValueError(f"degenerate MCTSConfig {cfg}")
 
@@ -278,42 +279,92 @@ def _edge_scores_from_analysis(
     return torch.where(actions != NULL, escore, S.zero())
 
 
+def _win_solve(tables: V.RuleTables, cfg: MCTSConfig, board: torch.Tensor, stm: torch.Tensor,
+               max_steps: int):
+    """The configured leaf solver (`vcf`, else `vct`) on [R, H, W]: (win,
+    best_move, distance) [R]."""
+    if cfg.leaf_solver == "vcf":
+        return vcf.solve(tables, board, stm, max_depth=cfg.leaf_solver_depth, max_steps=max_steps)
+    return vct_batched.solve(tables, board, stm, max_depth=cfg.leaf_solver_depth,
+                             max_steps=max_steps, max_threes=cfg.leaf_solver_threes)
+
+
+def _opp_threats(packed: torch.Tensor) -> torch.Tensor:
+    """[B]: the opponent of the side to move has a five, open-four or
+    double-four cell (its pattern-group bits of the encoded features): the
+    loss prover's candidates."""
+    return (((packed >> 20) & (0b111 << 8)) != 0).flatten(1).any(-1)
+
+
 def _solve(
     tables: V.RuleTables, cfg: MCTSConfig, board: torch.Tensor, stm: torch.Tensor,
     active: torch.Tensor, dtd: torch.Tensor, max_steps: int, cap: int = 0,
     packed: torch.Tensor | None = None,
 ):
-    """The VCT leaf solver on the positions [B, H, W] (reference: the
+    """The leaf solver on the positions [B, H, W] (reference: the
     alpha-beta leg run on every leaf batch, Search.cpp:159-183).
 
     With `0 < cap < B`, only `cap` positions are solved: the `active` ones
     with any threat cell of the side to move (own pattern-group bits of the
     encoded features `packed`) first, then the lowest-indexed others, as
-    `lax.top_k` picks them from a 0/1 mask (a stable descending sort).
-    Returns (win [B], best_move [B], win score [B]): `win` holds only for
-    `active` positions whose mate fits the draw horizon `dtd`."""
+    `lax.top_k` picks them from a 0/1 mask.  With the loss prover and the
+    VCT solver, the `loss_cap` positions with opponent threats
+    (`_opp_threats`, active ones first) get their loss proof's option
+    children (`vct_batched.prepare_loss`) solved in the same lockstep
+    batch (reference: the fail-low leg of the per-leaf alpha-beta,
+    AlphaBetaSearch.cpp:91-135).
+    Returns (win [B], best_move [B], win score [B], lost [B], loss score
+    [B]); `win` holds only for `active` positions whose mate fits the draw
+    horizon `dtd`, `lost` (None without the fused loss prover) only for
+    positions not proven won whose loss fits it."""
     bsz = board.shape[0]
-    if cap and cap < bsz:
+    compact = bool(cap) and cap < bsz
+    if compact:
         interest = ((packed >> 8) & 0xFFF).ne(0).flatten(1).any(-1) & active
-        sel = torch.sort(interest.int(), descending=True, stable=True).indices[:cap]
-        sres = vct_batched.solve(
-            tables, board[sel], stm[sel], max_depth=cfg.leaf_solver_depth,
-            max_steps=max_steps, max_threes=cfg.leaf_solver_threes,
-        )
-        # scatter the compacted proofs back (top-k indices are distinct)
-        win = torch.zeros(bsz, dtype=torch.bool, device=board.device).index_copy(0, sel, sres.win)
-        best = torch.full((bsz,), -1, dtype=torch.int32, device=board.device)
-        best = best.index_copy(0, sel, sres.best_move)
-        dist = torch.zeros(bsz, dtype=torch.int32, device=board.device)
-        dist = dist.index_copy(0, sel, sres.distance)
+        sel = V.first_k(interest, cap)
+        solve_board, solve_stm = board[sel], stm[sel]
     else:
-        win, best, dist = vct_batched.solve(
-            tables, board, stm, max_depth=cfg.leaf_solver_depth, max_steps=max_steps,
-            max_threes=cfg.leaf_solver_threes,
-        )
+        solve_board, solve_stm = board, stm
+    fuse_loss = cfg.loss_prover and cfg.leaf_solver == "vct"
+    if fuse_loss:
+        lcap = max(1, min(int(cfg.loss_cap), bsz))
+        cand_l = _opp_threats(packed) & active
+        sel_l = V.first_k(cand_l, lcap)
+        prep = vct_batched.prepare_loss(tables, board[sel_l], stm[sel_l], cfg.loss_options)
+        n_win = solve_board.shape[0]
+        # one solve of both legs: its rows are independent
+        solve_board = torch.cat([solve_board, prep.child_board])
+        solve_stm = torch.cat([solve_stm.to(torch.int8), prep.child_stm])
+    win, best, dist = _win_solve(tables, cfg, solve_board, solve_stm, max_steps)
+    if fuse_loss:
+        shape = (lcap, cfg.loss_options)
+        lres = vct_batched.finish_loss(prep, win[n_win:].reshape(shape),
+                                       dist[n_win:].reshape(shape))
+        win, best, dist = win[:n_win], best[:n_win], dist[:n_win]
+    if compact:
+        # scatter the compacted proofs back (top-k indices are distinct)
+        win = torch.zeros(bsz, dtype=torch.bool, device=board.device).index_copy(0, sel, win)
+        best = torch.full((bsz,), -1, dtype=torch.int32, device=board.device).index_copy(
+            0, sel, best)
+        dist = torch.zeros(bsz, dtype=torch.int32, device=board.device).index_copy(0, sel, dist)
     # a mate longer than the draw horizon is a draw, not a win
     win = win & active & (dist <= dtd)
-    return win, best, S.win_in(dist.clamp(1, 512))
+    win_sc = S.win_in(dist.clamp(1, 512))
+    if not fuse_loss:
+        return win, best, win_sc, None, None
+    lost, loss_sc = _scatter_losses(lres, cand_l, sel_l, dtd)
+    return win, best, win_sc, lost & ~win, loss_sc
+
+
+def _scatter_losses(lres: vct_batched.LossResult, cand: torch.Tensor, sel: torch.Tensor,
+                    dtd: torch.Tensor):
+    """The loss proofs of the candidate rows `sel` [L] scattered back to
+    the batch: (lost [B], loss score [B]); a mate past the draw horizon
+    `dtd` is a draw, not a loss."""
+    lost_rows = lres.loss & cand[sel]
+    dist = torch.zeros_like(dtd).index_copy(0, sel, torch.where(lost_rows, lres.distance, 0))
+    lost = torch.zeros_like(cand).index_copy(0, sel, lost_rows) & (dist <= dtd)
+    return lost, S.loss_in(dist.clamp(1, 512))
 
 
 def _apply_proofs(analysis: static_solver.StaticAnalysis, policy: torch.Tensor,
@@ -413,7 +464,6 @@ def make_simulate_fn(
     evaluation over the B reached positions, expansion with the
     transposition probe, statistics credit and the two-phase backup."""
     check_config(cfg)
-    V.check_rules(tables)
     D = cfg.max_depth
     K = cfg.max_edges
 
@@ -484,13 +534,17 @@ def make_simulate_fn(
             analysis = static_solver.analyze(packed, legal, dtd)
 
         solver_win = torch.zeros_like(need)
-        if cfg.leaf_solver == "vct":
+        solver_loss = None
+        if cfg.leaf_solver != "none":
             with record_function("mcts.solve"):
-                solver_win, best, win_sc = _solve(
+                solver_win, best, win_sc, solver_loss, loss_sc = _solve(
                     tables, cfg, boardc, stm, need & ~terminal, dtd, cfg.leaf_solver_steps,
                     cfg.leaf_solver_cap, packed,
                 )
                 analysis, policy = _apply_proofs(analysis, policy, solver_win, best, win_sc)
+                if solver_loss is not None:
+                    analysis = analysis._replace(
+                        node_score=torch.where(solver_loss, loss_sc, analysis.node_score))
 
         with record_function("mcts.expand"):
             # -- EXPAND (reference: Tree::expand, Tree.cpp:257-298) ---------
@@ -606,7 +660,7 @@ def make_simulate_fn(
             proven_revisits=st.proven_revisits + revisit.int(),
             terminals=st.terminals + (terminal & need).int(),
             solver_wins=st.solver_wins + solver_win.int(),
-            solver_losses=st.solver_losses + zero,
+            solver_losses=st.solver_losses + (zero if solver_loss is None else solver_loss.int()),
         )
         return state._replace(sims_done=state.sims_done + 1, stats=stats, frontier=alloc)
 
@@ -625,7 +679,6 @@ def init_root(
     """Fresh trees with the root (node 0) expanded.  `board` [B, H, W] and
     `stm` [B] (arrays or tensors) are moved to `device`."""
     check_config(cfg)
-    V.check_rules(tables)
     dev = torch.device(device)
     board = torch.as_tensor(board).to(device=dev, dtype=torch.int8)
     stm = torch.as_tensor(stm).to(device=dev, dtype=torch.int8)
@@ -637,17 +690,30 @@ def init_root(
     draw_after = cfg.draw_after if cfg.draw_after > 0 else h * w
     dtd_root = draw_after - (board != 0).sum((1, 2)).int()
     analysis = static_solver.analyze(packed, legal, dtd_root)
-    if cfg.leaf_solver == "vct":
+    if cfg.leaf_solver != "none":
         # solve the roots too (with 4x the leaves' budget): roots never
         # appear as leaves, and a root-proven win makes the proven edge
         # dominate selection at once (reference: AlphaBetaSearch also
         # solves root tasks)
         with record_function("mcts.solve"):
-            win, best, win_sc = _solve(
-                tables, cfg, board, stm, torch.ones_like(dtd_root, dtype=torch.bool), dtd_root,
-                4 * cfg.leaf_solver_steps,
-            )
-            analysis, policy = _apply_proofs(analysis, policy, win, best, win_sc)
+            win, best, dist = _win_solve(tables, cfg, board, stm, 4 * cfg.leaf_solver_steps)
+            win = win & (dist <= dtd_root)
+            analysis, policy = _apply_proofs(analysis, policy, win, best,
+                                             S.win_in(dist.clamp(1, 512)))
+            if cfg.loss_prover:
+                # prove lost roots over their complete defensive option
+                # sets, which need not fit the K edge slots (reference: the
+                # fail-low alpha-beta leg, AlphaBetaSearch.cpp:91-135)
+                cand = _opp_threats(packed) & ~win
+                sel = V.first_k(cand, max(1, min(int(cfg.loss_cap), bsz)))
+                lres = vct_batched.solve_loss(
+                    tables, board[sel], stm[sel], max_options=cfg.loss_options,
+                    max_depth=cfg.leaf_solver_depth, max_steps=4 * cfg.leaf_solver_steps,
+                    max_threes=cfg.leaf_solver_threes,
+                )
+                lost, loss_sc = _scatter_losses(lres, cand, sel, dtd_root)
+                analysis = analysis._replace(
+                    node_score=torch.where(lost, loss_sc, analysis.node_score))
     actions, priors, complete = _topk_edges(
         policy, analysis.restrict, cfg.max_edges, cfg.policy_expansion_temperature
     )

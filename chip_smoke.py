@@ -44,6 +44,22 @@ Phases, one line each (any failure exits non-zero):
      `STRENGTH_SIMS` sims), with the roots and leaves it proves;
  13. profile strength - phase 8 for the strength search, `mcts.solve` as
      its own phase;
+ 14. search loss_prover - phase 12 with the loss prover (`bench.py:186`:
+     loss_cap 32, loss_options 8; `LOSS_SIMS` sims), then its profile;
+ 15. search renju - the same search under renju with the VCF leaf solver
+     (`RENJU_SIMS` sims), then its profile: the roots' forbidden cells and
+     the residual of their certificate, the cells that feature bit 6 marks
+     in the positions the search evaluated, the host gates' syncs per
+     step, and a gate that no move chosen for black lies on a cell that
+     the root's bit 6 marks forbidden; then the same search and gate on
+     the clustered boards of phase 16 with black to move (`CLUSTER_SIMS`
+     sims), whose roots hold forbidden cells, so that the gate can fail;
+ 16. solvers renju - on 1280 black-heavy clustered renju boards (the
+     generator of tests/test_torch_renju.py, seed 7): forbidden_plane_u,
+     vct_batched.solve, vcf.solve and solve_loss(levels=2) on the card,
+     each bit-equal to the same function on CPU copies (solve_loss on the
+     first `LOSS2_CPU_BOARDS` boards' rows: its 2-level batch is 256
+     VCT rows per board);
 then a `kernels` JSON line and, last, {"ok": true, "device": {...}}.
 
 A kernel's `ms` is its device time per launch: for score_scan and
@@ -70,8 +86,14 @@ ROOT = Path(__file__).resolve().parent
 CKPT = ROOT / "runs" / "flagship_r4" / "checkpoint" / "network_23.msgpack"
 BATCH = 1280
 SIMS = 800  # flagship search
-WIDE_SIMS = 800  # 8x128 search
+# the 8x128 search runs 200 sims: with every search at 800 the whole run
+# passed 15 minutes, and the 8x128 path is the first to cut
+WIDE_SIMS = 200  # 8x128 search
 STRENGTH_SIMS = 800  # strength (VCT leaf solver) search
+LOSS_SIMS = 800  # strength search with the loss prover
+RENJU_SIMS = 800  # renju search with the VCF leaf solver
+CLUSTER_SIMS = 64  # renju search on the clustered boards, black to move
+LOSS2_CPU_BOARDS = 32  # boards of the level-2 loss proof checked on the CPU
 WIDE_SEED = 0  # torch.Generator seed of the 8x128 network's weights
 H = W = 15
 
@@ -476,11 +498,12 @@ def network_phase(weights, planes, tag: str) -> None:
             raise SystemExit(f"{tag}: the check passed {name} without the last b2: {fault}")
 
 
-def search_phase(weights, tables, cfg, boards, stm, sims: int, tag: str):
-    """One `run_search` of `sims` simulations with the kernels' launch
-    counts set to 0 just before it and read just after; the search's
-    invariants; a line with sims/s and launches per step.  Returns the
-    final state and the launch counts."""
+def search_phase(weights, tables, cfg, boards, stm, sims: int, tag: str, net_apply=None):
+    """One `run_search` of `sims` simulations (through `net_apply`, by
+    default `fused_apply`) with the kernels' launch counts set to 0 just
+    before it and read just after; the search's invariants; a line with
+    sims/s and launches per step.  Returns the final state and the launch
+    counts."""
     import torch
     from alphagomoku_tpu_torch.ops import convnext_fused as CF
     from alphagomoku_tpu_torch.ops import score_scan as SSM
@@ -492,8 +515,8 @@ def search_phase(weights, tables, cfg, boards, stm, sims: int, tag: str):
     CF.fused_trunk.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state = mcts.run_search(CF.fused_apply, weights, tables, cfg, boards, stm, sims,
-                            device=boards.device)
+    state = mcts.run_search(net_apply or CF.fused_apply, weights, tables, cfg, boards, stm,
+                            sims, device=boards.device)
     move = mcts.select_move(state)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
@@ -514,13 +537,117 @@ def search_phase(weights, tables, cfg, boards, stm, sims: int, tag: str):
     if not bool(torch.isfinite(mcts.root_value(state)).all()):
         raise SystemExit(f"{tag}: non-finite root value")
     summary = state.stats.summary(state.sims_done)
+    root = tree.node_score[:, 0]
     print(f"{tag}: {sims} sims x batch {BATCH} in {dt:.3f} s = {BATCH * sims / dt:.1f} sims/s, "
           f"{dt / sims * 1e3:.3f} ms per simulation step; launches {launches}, "
           f"{sum(launches.values()) / sims:.4f} of the kernels per step; "
-          f"proven roots {int(root_proven.sum())}; node_count {int(tree.node_count.max())}; "
+          f"proven roots {int(root_proven.sum())} (won {int(S.is_win(root).sum())}, lost "
+          f"{int(S.is_loss(root).sum())}); node_count {int(tree.node_count.max())}; "
           f"avg depth {summary['avg_depth']:.3f}, transpositions {summary['transpositions']:.0f}, "
-          f"solver-proven leaves {summary['solver_wins']:.0f}", flush=True)
+          f"solver-proven leaves {summary['solver_wins']:.0f} won, "
+          f"{summary['solver_losses']:.0f} lost", flush=True)
     return state, launches
+
+
+def renju_search_phase(weights, renju, cfg, boards, stm, sims: int, tag: str,
+                       need_forbidden: bool):
+    """`search_phase` under renju, through a `fused_apply` that also sums,
+    on the device, the cells that feature bit 6 (raw plane 6) marks in the
+    positions the search evaluates; then the gate: no move chosen for black
+    lies on a cell that the root's bit 6 marks.  With `need_forbidden` the
+    roots must hold such cells, or the gate would check nothing.  Returns
+    the final state and the launch counts."""
+    import torch
+    from alphagomoku_tpu_torch.game import vectorized as V
+    from alphagomoku_tpu_torch.game.types import CROSS
+    from alphagomoku_tpu_torch.ops import convnext_fused as CF
+    from alphagomoku_tpu_torch.patterns import features as FEAT
+    from alphagomoku_tpu_torch.search import mcts
+
+    plane, residual = V.forbidden_plane_u(renju, boards)
+    bit6 = ((FEAT.encode(renju, boards, stm) >> 6) & 1).reshape(boards.shape[0], -1) == 1
+    root_cells = int(bit6.sum())
+    print(f"{tag}: the roots hold {int(plane.sum())} forbidden cells for black, residual "
+          f"{int(residual.sum())}; bit 6 marks {root_cells} cells on "
+          f"{int(bit6.any(1).sum())} roots with black to move", flush=True)
+    if need_forbidden and root_cells == 0:
+        raise SystemExit(f"{tag}: no root cell is marked forbidden; the gate checks nothing")
+    seen = torch.zeros(2, dtype=torch.int64, device=boards.device)
+
+    def counting_apply(variables, planes):
+        forb = planes[..., 6] > 0
+        seen.add_(torch.stack((forb.sum(), forb.any(2).any(1).sum())))
+        return CF.fused_apply(variables, planes)
+
+    V.host_gate.syncs = 0
+    state, launches = search_phase(weights, renju, cfg, boards, stm, sims, tag, counting_apply)
+    gate_syncs = V.host_gate.syncs / sims
+    move = mcts.select_move(state)
+    on_forbidden = bit6.gather(1, move[:, None])[:, 0] & (stm == CROSS)
+    if bool(on_forbidden.any()):
+        raise SystemExit(f"{tag}: {int(on_forbidden.sum())} moves chosen for black on cells the "
+                         f"root's bit 6 marks forbidden")
+    print(f"{tag}: bit 6 marked {int(seen[0])} cells in {int(seen[1])} of the evaluated "
+          f"positions; host gates {gate_syncs:.3f} syncs per step; no move chosen for black on "
+          f"a forbidden cell", flush=True)
+    return state, launches
+
+
+def clustered_boards(n: int, seed: int = 7):
+    """Black-heavy random-walk clusters of 8 to 29 stones around the
+    center (the generator of tests/test_torch_renju.py)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    boards = np.zeros((n, H, W), np.int8)
+    for i in range(n):
+        r, c = H // 2, W // 2
+        for s in range(rng.integers(8, 30)):
+            boards[i, r, c] = 1 if s % 3 != 2 else 2
+            r = int(np.clip(r + rng.integers(-2, 3), 0, H - 1))
+            c = int(np.clip(c + rng.integers(-2, 3), 0, W - 1))
+    return boards
+
+
+def solvers_phase(tables) -> None:
+    """forbidden_plane_u, the VCT and VCF solves and solve_loss(levels=2)
+    on BATCH clustered renju boards on the card, each bit-equal to the same
+    function on CPU copies, at the search's root budgets (the loss proof
+    at the leaves' 16 steps)."""
+    import torch
+    from alphagomoku_tpu_torch.game import vectorized as V
+    from alphagomoku_tpu_torch.search import vcf, vct_batched
+
+    cpu_b = torch.from_numpy(clustered_boards(BATCH))
+    cpu_s = torch.where(torch.arange(BATCH) % 2 == 0, 1, 2).to(torch.int8)
+    dev_b, dev_s = cpu_b.cuda(), cpu_s.cuda()
+    runs = [  # name, function, boards checked on the CPU, what its first output counts
+        ("forbidden_plane_u", lambda b, s: V.forbidden_plane_u(tables, b), BATCH,
+         "forbidden cells"),
+        ("vct_batched.solve", lambda b, s: vct_batched.solve(tables, b, s, max_depth=6,
+                                                             max_steps=64, max_threes=2), BATCH,
+         "proven wins"),
+        ("vcf.solve", lambda b, s: vcf.solve(tables, b, s, max_depth=6, max_steps=64), BATCH,
+         "proven wins"),
+        ("solve_loss(levels=2)", lambda b, s: vct_batched.solve_loss(
+            tables, b, s, max_options=8, max_depth=6, max_steps=16, max_threes=2, levels=2),
+         LOSS2_CPU_BOARDS, "proven losses"),
+    ]
+    for name, fn, n_cpu, what in runs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = [t.cpu() for t in fn(dev_b, dev_s)]
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host = fn(cpu_b[:n_cpu], cpu_s[:n_cpu])
+        cpu_s_ = time.perf_counter() - t0
+        for a, b in zip(card, host):
+            if not torch.equal(a[:n_cpu], b):
+                raise SystemExit(f"solvers renju: {name} on the card differs from the CPU")
+        extra = (f", residual {int(card[1].sum())} cells" if name == "forbidden_plane_u" else "")
+        print(f"solvers renju: {name} on {BATCH} boards: {card_s:.3f} s on the card, bit-equal "
+              f"to the CPU's on {n_cpu} boards ({cpu_s_:.3f} s); {int(card[0].sum())} {what}"
+              f"{extra}", flush=True)
 
 
 def main() -> int:
@@ -682,6 +809,34 @@ def main() -> int:
     simulate = mcts.make_simulate_fn(CF.fused_apply, tables, scfg)
     print(profile_steps(simulate, weights, state, PROFILE_STEPS).replace(
         "profile:", "profile strength:"), flush=True)
+    del state, simulate
+
+    # 14. the strength search with the loss prover (bench.py's fourth
+    # configuration), and its profile
+    lcfg = scfg._replace(loss_prover=True, loss_cap=32, loss_options=8)
+    state, paths["loss_prover"] = search_phase(weights, tables, lcfg, boards, stm, LOSS_SIMS,
+                                               "search loss_prover")
+    simulate = mcts.make_simulate_fn(CF.fused_apply, tables, lcfg)
+    print(profile_steps(simulate, weights, state, PROFILE_STEPS).replace(
+        "profile:", "profile loss_prover:"), flush=True)
+    del state, simulate
+
+    # 15. the same search under renju with the VCF leaf solver, on the
+    # bench boards and on clustered boards with forbidden cells
+    renju = V.device_tables(GameRules.RENJU)
+    rcfg = lcfg._replace(leaf_solver="vcf")
+    state, paths["renju"] = renju_search_phase(weights, renju, rcfg, boards, stm, RENJU_SIMS,
+                                               "search renju", need_forbidden=False)
+    simulate = mcts.make_simulate_fn(CF.fused_apply, renju, rcfg)
+    print(profile_steps(simulate, weights, state, PROFILE_STEPS).replace(
+        "profile:", "profile renju:"), flush=True)
+    del state, simulate
+    clustered = torch.from_numpy(clustered_boards(BATCH)).to(dev)
+    renju_search_phase(weights, renju, rcfg, clustered, stm, CLUSTER_SIMS,
+                       "search renju clustered", need_forbidden=True)
+
+    # 16. the renju solvers on the card against CPU copies
+    solvers_phase(renju)
 
     trunk = dict(name="fused_trunk", route="cuda",
                  source="alphagomoku_tpu_torch/csrc/convnext_trunk.cu",

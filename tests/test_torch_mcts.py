@@ -12,6 +12,7 @@ import torch
 from alphagomoku_tpu.game import vectorized as JV
 from alphagomoku_tpu.game.types import GameRules, CROSS, CIRCLE
 from alphagomoku_tpu.models.networks import NetOutput as JaxNetOutput
+from alphagomoku_tpu.patterns import tables as JT
 from alphagomoku_tpu.search import mcts as JM
 
 from alphagomoku_tpu_torch.game import vectorized as TV
@@ -98,11 +99,14 @@ def _results(state, search, to_np) -> dict:
     return out
 
 
-def jax_stub_search(rules, **cfg) -> dict:
+def jax_stub_search(rules, positions=None, **cfg) -> dict:
     """The JAX package's run_search with the stub network (the reference
-    side of the stub tests and of their goldens)."""
-    boards, stm = boards_and_stm()
-    jtables = JV.RuleTables(pattern=None, threat=None, rules=int(rules))
+    side of the stub tests and of their goldens) on `positions` (boards,
+    stm), by default `boards_and_stm()`."""
+    boards, stm = positions or boards_and_stm()
+    # the batched paths classify by bit math: only the threat table is read
+    jtables = JV.RuleTables(pattern=None, threat=jnp.asarray(JT._build_threat_table(rules)),
+                            rules=int(rules))
     jcfg = JAX_CFG._replace(**cfg)
     search = jax.jit(lambda b, s: JM.run_search(jax_stub, None, jtables, jcfg, b, s, SIMS))
     js = search(jnp.asarray(boards), jnp.asarray(stm))
@@ -110,12 +114,14 @@ def jax_stub_search(rules, **cfg) -> dict:
         np.float32 if a.dtype == jnp.bfloat16 else a.dtype))
 
 
-def check_stub_search(rules, golden: str | None = None, **cfg):
+def check_stub_search(rules, golden: str | None = None, positions=None, **cfg):
     """The port's run_search with the stub network against the JAX
-    package's (live, or its golden `golden`): the trees must be equal
-    array for array (values and priors within 1e-5 relative)."""
-    ref = jax_stub_search(rules, **cfg) if golden is None else torch_golden.load(golden)
-    boards, stm = boards_and_stm()
+    package's (live, or its golden `golden`) on `positions`: the trees
+    must be equal array for array (values and priors within 1e-5
+    relative)."""
+    ref = (jax_stub_search(rules, positions, **cfg) if golden is None
+           else torch_golden.load(golden))
+    boards, stm = positions or boards_and_stm()
     ts = TM.run_search(
         torch_stub, None, TV.device_tables(rules), TORCH_CFG._replace(**cfg), boards,
         stm, SIMS, device="cpu",
@@ -145,18 +151,21 @@ def test_stub_search_matches_jax_freestyle():
 
 
 def test_unported_config_raises():
-    """Options outside the ported slice raise naming ROADMAP.md: another
-    policy, leaf_batch > 1, the VCF leaf solver, the loss prover, and a
-    trunk width the kernel has no layout for; the VCT leaf solver runs."""
+    """Options outside the ported slice raise naming ROADMAP.md item 10:
+    another policy, leaf_batch > 1, root noise, symmetry averaging; and a
+    trunk width the kernel has no layout for.  The VCF and VCT leaf
+    solvers and the loss prover run."""
     boards, stm = boards_and_stm()
     tables = TV.device_tables(GameRules.FREESTYLE)
     for cfg in (TORCH_CFG._replace(policy="ucb"), TORCH_CFG._replace(leaf_batch=2),
-                TORCH_CFG._replace(leaf_solver="vcf"),
-                TORCH_CFG._replace(leaf_solver="vct", loss_prover=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+                TORCH_CFG._replace(noise_weight=0.25),
+                TORCH_CFG._replace(symmetry_averaging=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
             TM.run_search(torch_stub, None, tables, cfg, boards, stm, 1, device="cpu")
-    TM.run_search(torch_stub, None, tables, TORCH_CFG._replace(leaf_solver="vct"), boards, stm,
-                  1, device="cpu")
+    for solver in ("vct", "vcf"):
+        TM.run_search(torch_stub, None, tables,
+                      TORCH_CFG._replace(leaf_solver=solver, loss_prover=True), boards, stm, 1,
+                      device="cpu")
     from alphagomoku_tpu_torch.ops import convnext_fused as CF
 
     x = torch.zeros((1, 15, 15, 256), dtype=torch.bfloat16)

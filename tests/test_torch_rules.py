@@ -110,8 +110,34 @@ def test_outcome_after_matches_jax(rules):
 
 
 def test_renju_raises_not_implemented():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TV.device_tables(GameRules.RENJU)
+    """Under renju, the search options of ROADMAP.md item 10 (another
+    policy, leaf_batch > 1, root noise, symmetry averaging) still raise
+    NotImplementedError naming the item."""
+    from alphagomoku_tpu_torch.search import mcts as TM
+    from tests.test_torch_mcts import TORCH_CFG, boards_and_stm, torch_stub
+
+    tables = TV.device_tables(GameRules.RENJU)
+    boards, stm = boards_and_stm()
+    for cfg in (TORCH_CFG._replace(policy="ucb"), TORCH_CFG._replace(leaf_batch=2),
+                TORCH_CFG._replace(noise_weight=0.25),
+                TORCH_CFG._replace(symmetry_averaging=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
+            TM.run_search(torch_stub, None, tables, cfg, boards, stm, 1, device="cpu")
+
+
+def test_renju_tables_build_and_search_runs():
+    """Renju is ported: its tables build and its search runs, with each
+    leaf solver and the loss prover."""
+    from alphagomoku_tpu_torch.search import mcts as TM
+    from tests.test_torch_mcts import TORCH_CFG, boards_and_stm, torch_stub
+
+    tables = TV.device_tables(GameRules.RENJU)
+    assert tables.rules == GameRules.RENJU
+    boards, stm = boards_and_stm()
+    for cfg in (TORCH_CFG, TORCH_CFG._replace(leaf_solver="vcf"),
+                TORCH_CFG._replace(leaf_solver="vct", loss_prover=True)):
+        state = TM.run_search(torch_stub, None, tables, cfg, boards, stm, 2, device="cpu")
+        assert bool((state.sims_done == 2).all())
 
 
 def test_score_functions_match_jax_on_every_u16():

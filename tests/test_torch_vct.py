@@ -1,8 +1,11 @@
 """The port's batched VCT solver held bit-exact against the JAX package's
 `vct_batched.solve`: win, best_move and distance, on the positions of
-tests/test_vct_batched.py and on seeded middle games of the four ported
-rules, at the MCTS budgets (depth 6, threes 2, steps 16 and 64).  The JAX
-side is the golden vct_solve (`jax_vct_solve`; its compiles take minutes).
+tests/test_vct_batched.py and on seeded middle games of the four
+non-renju rules, at the MCTS budgets (depth 6, threes 2, steps 16 and
+64), and under renju on those positions, renju middle games and
+black-heavy clusters.  The JAX sides are the goldens vct_solve
+(`jax_vct_solve`; its compiles take minutes) and vct_solve_renju
+(`jax_vct_solve_renju`).
 """
 
 import numpy as np
@@ -67,15 +70,30 @@ def cases():
     return out
 
 
-def jax_vct_solve() -> dict:
+def renju_cases():
+    """The compared renju solves: the positions, renju middle games and the
+    black-heavy clusters of tests/test_torch_renju.py, both sides to move,
+    at the leaves' budget (16 steps)."""
+    from tests.test_torch_renju import clustered
+
+    kw = MCTS_BUDGETS[0]
+    alternate = np.where(np.arange(32) % 2 == 0, CROSS, CIRCLE).astype(np.int8)
+    return [("positions", GameRules.RENJU, *positions(), MCTS_BUDGETS[1]),
+            ("middle", GameRules.RENJU, *middle_games(GameRules.RENJU), kw),
+            ("clustered", GameRules.RENJU, clustered(), alternate, kw)]
+
+
+def jax_vct_solve(renju: bool = False) -> dict:
     import jax
     import jax.numpy as jnp
     from alphagomoku_tpu.game import vectorized as JV
+    from alphagomoku_tpu.patterns import tables as JT
     from alphagomoku_tpu.search import vct_batched as JVB
 
     out = {}
-    for key, rules, boards, stm, kw in cases():
-        tables = JV.RuleTables(pattern=None, threat=None, rules=int(rules))
+    for key, rules, boards, stm, kw in renju_cases() if renju else cases():
+        tables = JV.RuleTables(pattern=None, threat=jnp.asarray(JT._build_threat_table(rules)),
+                               rules=int(rules))
         res = jax.jit(lambda b, s: JVB.solve(tables, b, s, **kw))(jnp.asarray(boards),
                                                                  jnp.asarray(stm))
         for name, v in res._asdict().items():
@@ -97,6 +115,19 @@ def test_solve_matches_jax(case):
         assert res.best_move[0] == 7 * 15 + 7 and res.best_move[3] == 4
     else:
         assert 0 < int(res.win.sum()) < len(boards)
+
+
+@pytest.mark.parametrize("case", renju_cases(), ids=lambda c: c[0])
+def test_renju_solve_matches_jax(case):
+    """Renju: black's candidates leave out possibly forbidden cells, and a
+    forced block certainly forbidden for a black defender is a win."""
+    key, rules, boards, stm, kw = case
+    ref = torch_golden.load("vct_solve_renju")
+    res = TVB.solve(TV.device_tables(rules), torch.from_numpy(boards),
+                    torch.from_numpy(stm), **kw)
+    for name, v in res._asdict().items():
+        assert np.array_equal(ref[f"{key}.{name}"], v.numpy()), name
+    assert 0 < int(res.win.sum()) < len(boards)
 
 
 def test_finished_board_is_a_fixed_point():
