@@ -1,10 +1,13 @@
-"""Batched game rules on `[B, H, W]` int8 boards: the search path's subset.
+"""Batched game rules on `[B, H, W]` int8 boards: the search and self-play
+paths' subset.
 
 Port of the reference package's `game/vectorized.py` for all five rules:
 line-window extraction, the outcome check after a move, the ThreatType
-lookup, and renju's forbidden-move check for black (`is_forbidden_u`,
-`forbidden_plane_u`).  Windows are packed 22-bit values (2 bits per cell
-over 11 cells, the center masked to NONE) carried in int64.
+lookup, renju's forbidden-move check for black (`is_forbidden_u`,
+`forbidden_plane_u`), and the lockstep environment that self-play steps
+(`EnvState`, `env_reset`, `legal_mask`, `env_step`).  Windows are packed
+22-bit values (2 bits per cell over 11 cells, the center masked to NONE)
+carried in int64.
 
 Renju's fake-three resolution is recursive in the reference
 (src/game/rules.cpp:134-173: each level hypothetically places one stone).
@@ -489,3 +492,69 @@ def _escalate_forbidden(tables, board, forb_flat, unc_flat, depth, cap):
     covered = zero.index_copy(0, idx, vals)
     forb = torch.where(covered, zero.index_copy(0, idx, f & vals), forb_flat)
     return forb, zero.index_copy(0, idx, u & vals) | (unc_flat & ~covered)
+
+
+# ---------------------------------------------------------------------------
+# Lockstep vectorized environment
+# ---------------------------------------------------------------------------
+
+
+class EnvState(NamedTuple):
+    """Lockstep env state over a batch of independent games."""
+
+    board: torch.Tensor  # [B, H, W] int8
+    to_move: torch.Tensor  # [B] int8 (CROSS or CIRCLE)
+    outcome: torch.Tensor  # [B] int8 GameOutcome
+    move_count: torch.Tensor  # [B] int32
+
+
+def env_reset(batch: int, rows: int, cols: int, device="cuda") -> EnvState:
+    dev = torch.device(device)
+    return EnvState(
+        board=torch.zeros((batch, rows, cols), dtype=torch.int8, device=dev),
+        to_move=torch.full((batch,), CROSS, dtype=torch.int8, device=dev),
+        outcome=torch.full((batch,), int(GameOutcome.UNKNOWN), dtype=torch.int8, device=dev),
+        move_count=torch.zeros(batch, dtype=torch.int32, device=dev),
+    )
+
+
+def legal_mask(state: EnvState) -> torch.Tensor:
+    """[B, H, W] bool: playable cells (empty + game still running).
+
+    Renju forbidden cells remain playable (playing one loses), matching the
+    reference's move legality (Board::isMoveLegal)."""
+    active = (state.outcome == int(GameOutcome.UNKNOWN))[:, None, None]
+    return (state.board == NONE) & active
+
+
+def env_step(
+    tables: RuleTables,
+    state: EnvState,
+    rows: torch.Tensor,
+    cols: torch.Tensor,
+    draw_after: int = 0,
+    forbidden_depth: int = 2,
+) -> EnvState:
+    """Apply one move per board at (`rows`, `cols`) [B].  Finished games
+    and moves onto occupied cells are frozen (no-op), keeping the batch in
+    lockstep.  Returns a new state; `state` is not modified."""
+    bsz, h, w = state.board.shape
+    b = torch.arange(bsz, device=state.board.device)
+    rows, cols = rows.long(), cols.long()
+    if draw_after <= 0:
+        draw_after = h * w
+
+    active = state.outcome == int(GameOutcome.UNKNOWN)
+    legal = active & (state.board[b, rows, cols] == NONE)
+    sign = state.to_move
+
+    new_board = state.board.clone()
+    new_board[b, rows, cols] = torch.where(legal, sign, state.board[b, rows, cols])
+    new_count = state.move_count + legal.int()
+
+    out = outcome_after(tables, new_board, rows, cols, sign, new_count, draw_after,
+                        forbidden_depth)
+    new_outcome = torch.where(legal, out, state.outcome)
+    other = torch.where(sign == CROSS, CIRCLE, CROSS).to(torch.int8)
+    new_to_move = torch.where(legal, other, state.to_move)
+    return EnvState(new_board, new_to_move, new_outcome, new_count)

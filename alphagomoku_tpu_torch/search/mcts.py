@@ -2,13 +2,21 @@
 in lockstep by one simulation per tree per step.
 
 Port of the reference package's `search/mcts.py` under all five rules at
-`policy="puct"`, `init_to="parent"`, `leaf_batch=1`, no root noise, no
-symmetry averaging, no NNUE; transpositions on (or off); the leaf solver
-off, `leaf_solver="vcf"` (`search/vcf.py`) or `"vct"` (the engine default,
+`policy="puct"`, `init_to="parent"`, `leaf_batch=1`, no symmetry
+averaging, no NNUE; transpositions on (or off); root noise of the three
+types (dirichlet, gumbel, custom) and the between-move subtree carry-over
+of self-play (`reuse_or_init_root`); the leaf solver off,
+`leaf_solver="vcf"` (`search/vcf.py`) or `"vct"` (the engine default,
 `search/vct_batched.py`), with or without the loss prover
 (`vct_batched.prepare_loss` / `finish_loss` at the leaves, `solve_loss` at
 the roots).  Other configuration values raise NotImplementedError
 (`check_config`).
+
+Random numbers come in as tensors: `init_root`, `run_search` and
+`reuse_or_init_root` take the root noise already drawn and `select_move`
+the Gumbel draw of its temperature sampling, so that a caller can inject
+any draws; `sample_root_noise` and `sample_gumbel` draw them from an
+explicit `torch.Generator`.
 
 Mapping to the reference (src/search/monte_carlo/{Tree,Search,Node,Edge,
 EdgeSelector,EdgeGenerator}.cpp), as in the reference package:
@@ -32,12 +40,15 @@ place (a search owns its tree), which keeps one copy of each in memory.
 Types: packed Scores are int32, actions and child ids int32, priors bf16,
 hashes int64 (two u32 lanes).  The descent runs exactly `max_depth`
 levels (a finished row only writes NULL path entries, so this equals the
-reference package's early-exit loop without a host sync per level), and
-the allocation frontier is a host int that follows the step count.
+reference package's early-exit loop without a host sync per level).  The
+allocation frontier is a host int, the largest node count of the batch:
+it follows the step count, and `reuse_or_init_root` reads it from the
+device once.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -98,7 +109,6 @@ def check_config(cfg: MCTSConfig) -> None:
         (cfg.policy == "puct", f"policy={cfg.policy!r}"),
         (cfg.init_to == "parent", f"init_to={cfg.init_to!r}"),
         (cfg.leaf_batch == 1, f"leaf_batch={cfg.leaf_batch}"),
-        (cfg.noise_weight == 0.0, f"noise_weight={cfg.noise_weight}"),
         (not cfg.symmetry_averaging, "symmetry_averaging"),
     ]
     for ok, what in checks:
@@ -566,11 +576,15 @@ def make_simulate_fn(
             start_value = torch.where(revisit[:, None], S.convert_to_value(leaf_score), value)
             start_score = torch.where(need, term_score, torch.where(revisit, leaf_score, S.zero()))
 
-            # transposition probe over the pre-step nodes (reference:
-            # NodeCache::seek, NodeCache.hpp:51-120)
+            # transposition probe over each tree's pre-step nodes
+            # (reference: NodeCache::seek, NodeCache.hpp:51-120); a lane that
+            # `reuse_or_init_root` restarted holds fewer nodes than the
+            # frontier, and its rows past them are unused
             frontier = state.frontier
             if cfg.use_transpositions:
-                hm = (tree.node_hash[:, :frontier] == hash_f[:, None, :]).all(-1)
+                in_use = (torch.arange(frontier, device=dev)[None, :]
+                          < tree.node_count[:, None])
+                hm = (tree.node_hash[:, :frontier] == hash_f[:, None, :]).all(-1) & in_use
                 found = hm.any(-1) & need & ~terminal
                 found_idx = torch.argmax(hm.int(), dim=-1)
                 found_score = tree.node_score[b, found_idx]
@@ -674,10 +688,12 @@ def make_simulate_fn(
 
 def init_root(
     net_apply: Callable, variables: Any, tables: V.RuleTables, cfg: MCTSConfig,
-    board, stm, raw_input: bool = True, device="cuda",
+    board, stm, raw_input: bool = True, device="cuda", noise: torch.Tensor | None = None,
 ) -> SearchState:
     """Fresh trees with the root (node 0) expanded.  `board` [B, H, W] and
-    `stm` [B] (arrays or tensors) are moved to `device`."""
+    `stm` [B] (arrays or tensors) are moved to `device`.  `noise` [B, K],
+    drawn by `sample_root_noise`, perturbs the root priors when
+    `cfg.noise_weight > 0` (`apply_root_noise`)."""
     check_config(cfg)
     dev = torch.device(device)
     board = torch.as_tensor(board).to(device=dev, dtype=torch.int8)
@@ -738,22 +754,173 @@ def init_root(
         root_board=board,
         root_stm=stm,
         root_node=torch.zeros(bsz, dtype=torch.int64, device=dev),
-        noisy_prior=priors,
+        noisy_prior=apply_root_noise(cfg, priors, actions, noise),
         sims_done=torch.zeros(bsz, dtype=torch.int32, device=dev),
         stats=SearchStats.zeros(bsz, dev),
         frontier=1,
     )
 
 
+def sample_gumbel(shape, generator: torch.Generator) -> torch.Tensor:
+    """Standard Gumbel draws in f32 on the generator's device, as
+    `jax.random.gumbel` makes them: -log(-log(u)), u uniform in [tiny, 1)."""
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
+
+
+def sample_log_gamma(alpha: float, shape, generator: torch.Generator) -> torch.Tensor:
+    """log of Gamma(alpha, 1) draws in f32 (Marsaglia-Tsang, with the
+    alpha < 1 boost taken in log space: log G(alpha + 1) + log(u) / alpha,
+    which a small alpha would underflow outside it).  Rejection rounds
+    repeat until every element is accepted (one host sync a round; about
+    1 in 20 elements is rejected in a round)."""
+    dev = generator.device
+    boost = alpha < 1.0
+    d = (alpha + 1.0 if boost else alpha) - 1.0 / 3.0
+    c = 1.0 / math.sqrt(9.0 * d)
+    out = torch.zeros(shape, device=dev)
+    todo = torch.ones(shape, dtype=torch.bool, device=dev)
+    while True:
+        x = torch.randn(shape, generator=generator, device=dev)
+        v = (1.0 + c * x) ** 3
+        u = torch.rand(shape, generator=generator, device=dev)
+        logv = torch.log(v.clamp(min=1e-30))
+        ok = (v > 0) & (torch.log(u) < 0.5 * x * x + d - d * v + d * logv)
+        out = torch.where(todo & ok, math.log(d) + logv, out)
+        todo &= ~ok
+        if not bool(todo.any()):
+            break
+    if boost:
+        u = torch.rand(shape, generator=generator, device=dev)
+        out = out + torch.log1p(-u) / alpha
+    return out
+
+
+def custom_noise(u: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """The custom root noise [B, K] from uniform draws `u` [B, K] and a
+    permutation of the K slots per row `perm` [B, K]: stick-breaking
+    r_i = u_i^4 * (1 - the sum so far), then shuffled (reference:
+    createCustomNoise, src/utils/random.cpp:89-100)."""
+    u4 = u ** 4
+    rem = torch.cumprod(1.0 - u4, dim=-1) / (1.0 - u4).clamp(min=1e-9)
+    return (u4 * rem).gather(-1, perm.long())
+
+
+def sample_root_noise(cfg: MCTSConfig, batch: int, generator: torch.Generator) -> torch.Tensor:
+    """The root noise [B, K] of `cfg.noise_type` drawn from `generator` on
+    its device: Gumbel draws for "gumbel", `custom_noise` for "custom",
+    else Dirichlet(noise_alpha) rows, sampled as `jax.random.dirichlet`
+    does (softmax of log-gamma draws)."""
+    shape = (batch, cfg.max_edges)
+    if cfg.noise_type == "gumbel":
+        return sample_gumbel(shape, generator)
+    if cfg.noise_type == "custom":
+        u = torch.rand(shape, generator=generator, device=generator.device)
+        keys = torch.rand(shape, generator=generator, device=generator.device)
+        return custom_noise(u, torch.argsort(keys, dim=-1))
+    return torch.softmax(sample_log_gamma(cfg.noise_alpha, shape, generator), dim=-1)
+
+
+def apply_root_noise(
+    cfg: MCTSConfig, priors: torch.Tensor, actions: torch.Tensor, noise: torch.Tensor | None
+) -> torch.Tensor:
+    """Root exploration noise over the K edge priors [B, K] f32, per
+    `cfg.noise_type` (reference: applyDirichlet/Gumbel/CustomNoise,
+    EdgeSelector.cpp:602-625): gumbel perturbs the log priors by
+    `noise_weight * noise` and renormalizes by softmax; dirichlet and
+    custom mix `(1 - w) * prior + w * noise`.  Empty slots get 0 and rows
+    are renormalized.  Without `noise`, or at `noise_weight` 0, the
+    priors are returned as they are."""
+    if noise is None or cfg.noise_weight <= 0.0:
+        return priors
+    valid = actions != NULL
+    if cfg.noise_type == "gumbel":
+        logits = torch.log(priors.clamp(min=1e-9)) + cfg.noise_weight * noise
+        noisy = torch.where(valid, torch.softmax(torch.where(valid, logits, float("-inf")), -1),
+                            0.0)
+    else:
+        noisy = torch.where(valid, (1.0 - cfg.noise_weight) * priors + cfg.noise_weight * noise,
+                            0.0)
+    # the row sum added left to right, as the reference package's XLA adds
+    # it on the CPU: PUCT's argmax at the root turns on an ulp of a prior,
+    # so another order can change a self-play game
+    total = noisy[:, :1]
+    for k in range(1, noisy.shape[1]):
+        total = total + noisy[:, k:k + 1]
+    return noisy / total.clamp(min=1e-12)
+
+
+def reuse_or_init_root(
+    net_apply: Callable, variables: Any, tables: V.RuleTables, cfg: MCTSConfig,
+    prev_state: SearchState, prev_move: torch.Tensor, board, stm, reserve: int,
+    raw_input: bool = True, noise: torch.Tensor | None = None,
+) -> SearchState:
+    """Between-move subtree carry-over: point the root at the played child
+    and keep the accumulated statistics, re-initializing only the lanes that
+    cannot reuse (reference: Tree::setBoard + NodeCache::cleanup subtree
+    carry-over, Tree.cpp:128-151).
+
+    `prev_move` [B] is the flat action just played from `prev_state`'s root
+    (-1 disables reuse for that lane).  `reserve` is the node budget the
+    next search needs: lanes whose tree cannot fit it restart fresh.  A
+    lane reuses when `prev_move` is a root edge whose child was expanded
+    and the tree fits; its root is then that child (never node 0), so
+    `root_node > 0` marks the reused lanes.
+
+    The combined tree is new tensors, built from `prev_state.tree` and a
+    fresh `init_root`; `prev_state` is not modified.  The same `noise`
+    perturbs the fresh roots' f32 priors and the reused children's bf16
+    ones.  The allocation frontier is the largest node count of the
+    combined trees (one host sync)."""
+    fresh = init_root(net_apply, variables, tables, cfg, board, stm, raw_input,
+                      prev_state.root_board.device, noise)
+    bsz = fresh.tree.batch
+    b = torch.arange(bsz, device=fresh.root_board.device)
+    tree = prev_state.tree
+    prev_move = prev_move.to(b.device)
+    actions = tree.edge_action[b, prev_state.root_node]  # [B, K]
+    hit = actions == prev_move[:, None]
+    has_slot = hit.any(-1) & (prev_move >= 0)
+    slot = torch.argmax(hit.int(), dim=-1)
+    child = tree.edge_child[b, prev_state.root_node, slot].long()
+    fits = tree.node_count + reserve <= tree.capacity
+    reuse = has_slot & (child != NULL) & fits
+    child_safe = torch.where(reuse, child, 0)
+
+    def comb(carried, fresh_arr):
+        m = reuse.reshape((bsz,) + (1,) * (carried.dim() - 1))
+        return torch.where(m, carried, fresh_arr)
+
+    tree_c = Tree(*[comb(c, f) for c, f in zip(tree, fresh.tree)])
+    child_actions = tree.edge_action[b, child_safe]
+    child_prior = torch.where(child_actions != NULL, tree.edge_prior[b, child_safe].float(), 0.0)
+    noisy_child = apply_root_noise(cfg, child_prior, child_actions, noise)
+    return fresh._replace(
+        tree=tree_c,
+        root_node=torch.where(reuse, child, fresh.root_node),
+        noisy_prior=torch.where(reuse[:, None], noisy_child, fresh.noisy_prior),
+        frontier=int(tree_c.node_count.max()),
+    )
+
+
 def run_search(
     net_apply: Callable, variables: Any, tables: V.RuleTables, cfg: MCTSConfig,
     board, stm, num_simulations: int, raw_input: bool = True, device="cuda",
+    noise: torch.Tensor | None = None,
 ) -> SearchState:
-    """Full search: init the roots, then `num_simulations` lockstep
-    simulations.  `net_apply(variables, planes)` maps NHWC planes to a
-    `NetOutput` (e.g. `ops.convnext_fused.fused_apply` with its
-    `FusedWeights`)."""
-    state = init_root(net_apply, variables, tables, cfg, board, stm, raw_input, device)
+    """Full search: init the roots (with the root `noise`, see
+    `init_root`), then `num_simulations` lockstep simulations.
+    `net_apply(variables, planes)` maps NHWC planes to a `NetOutput` (e.g.
+    `ops.convnext_fused.fused_apply` with its `FusedWeights`)."""
+    state = init_root(net_apply, variables, tables, cfg, board, stm, raw_input, device, noise)
+    return simulate_n(net_apply, variables, tables, cfg, state, num_simulations, raw_input)
+
+
+def simulate_n(
+    net_apply: Callable, variables: Any, tables: V.RuleTables, cfg: MCTSConfig,
+    state: SearchState, num_simulations: int, raw_input: bool = True,
+) -> SearchState:
+    """`num_simulations` lockstep simulations from `state`."""
     simulate = make_simulate_fn(net_apply, tables, cfg, raw_input)
     with torch.no_grad():
         for _ in range(num_simulations):
@@ -791,12 +958,16 @@ def root_value(state: SearchState) -> torch.Tensor:
 
 
 def select_move(
-    state: SearchState, generator: torch.Generator | None = None, temperature: float = 0.0
+    state: SearchState, generator: torch.Generator | None = None, temperature: float = 0.0,
+    gumbel: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Final move [B] (flat action index): the reference's BestEdge
     ordering (EdgeSelector.cpp:515-536: WIN -> +1e8 - distance, LOSS ->
     -1e8 + distance, else visits + expectation * parent visits + 0.001 *
-    prior), or visit-count sampling with `temperature` from `generator`."""
+    prior), or, with `temperature` > 0 and a Gumbel draw [B, K] (`gumbel`,
+    else drawn from `generator`), visit-count sampling by the Gumbel-max
+    trick: argmax(gumbel + log(visits) / temperature), as
+    `jax.random.categorical` samples (the first maximum on ties)."""
     tree = state.tree
     rb = torch.arange(tree.batch, device=state.root_board.device)
     es = edge_stats(tree, rb, state.root_node)
@@ -804,9 +975,11 @@ def select_move(
     actions = tree.edge_action[rb, state.root_node]
     valid = actions != NULL
     h, w = state.root_board.shape[1], state.root_board.shape[2]
-    if generator is not None and temperature > 0.0:
+    if temperature > 0.0 and (gumbel is not None or generator is not None):
+        if gumbel is None:
+            gumbel = sample_gumbel(actions.shape, generator)
         logits = torch.where(valid, torch.log(visits.clamp(min=1e-9)) / temperature, float("-inf"))
-        slot = torch.multinomial(torch.softmax(logits, -1), 1, generator=generator)[:, 0]
+        slot = torch.argmax(gumbel + logits, dim=-1)
     else:
         q = es.q_win + 0.5 * es.q_draw
         parent_n = tree.node_visits[rb, state.root_node].float()

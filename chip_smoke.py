@@ -31,7 +31,7 @@ Phases, one line each (any failure exits non-zero):
      counts read around it; then score_backup held against its plain
      version on clones of that search's tree, on paths walked from each
      root down the most-visited edges, timed the same way;
-  8. profile - 5 more steps of the same search under torch.profiler: the
+  8. profile - `PROFILE_STEPS` more steps of the same search under torch.profiler: the
      device's busy share, kernel launches per step, and host and device
      milliseconds per step of each phase of the step;
   9. fused_trunk 128 - phase 5 at C = 128, L = 8 with the seeded 8x128
@@ -60,6 +60,30 @@ Phases, one line each (any failure exits non-zero):
      each bit-equal to the same function on CPU copies (solve_loss on the
      first `LOSS2_CPU_BOARDS` boards' rows: its 2-level batch is 256
      VCT rows per board);
+ 17. selfplay - `play_games_resumable` at the training manager's
+     configuration (`tools/selfplay_generation.py`: network_23, 256 games
+     from balanced openings of 4 stones, 100 sims, max_nodes 208,
+     max_depth 32, the VCT leaf solver at steps 16 and cap 256, tree
+     reuse, Dirichlet noise 0.25 / 0.1, temperature on the first 10
+     plies), cut to `SELFPLAY_MOVES` moves in chunks of `SELFPLAY_CHUNK`,
+     stopped after the first chunk and resumed from its snapshot; then the
+     trunk kernel at its batch and score_backup on its last tree's paths
+     (depth 32: `score_backup_kernel<32>`), each held against its plain
+     version as in phases 5 and 7; gates
+     after every move (`MoveChecks`: node_count, sims, root visits, the
+     noisy priors' sums, the lanes reused against the reuse rule), on the
+     games (`check_games`: moves on empty cells of live games, the moves
+     replayed through `env_step` on the CPU give the same boards,
+     outcomes and game lengths, which count the stones) and on the
+     launches (score_backup once a step); ms per move and per step, the
+     share of lanes reused per move, games finished; then the last move's
+     search traced, as phase 8;
+ 18. selfplay to the end - the same with no leaf solver, `TO_END_SIMS`
+     sims and a draw horizon `TO_END_PLIES` plies past the openings, in
+     one call: every game ends with an outcome, lanes reuse their trees at
+     every move after the first, `make_targets` gives valid samples whose
+     value_wdl rows sum to 1, and a ReplayBuffer saved and loaded in
+     build/chip_smoke/ gives equal arrays;
 then a `kernels` JSON line and, last, {"ok": true, "device": {...}}.
 
 A kernel's `ms` is its device time per launch: for score_scan and
@@ -82,6 +106,8 @@ import sys
 import time
 from pathlib import Path
 
+from alphagomoku_tpu_torch.tools.profiling import kernel_device_ms, profile_steps
+
 ROOT = Path(__file__).resolve().parent
 CKPT = ROOT / "runs" / "flagship_r4" / "checkpoint" / "network_23.msgpack"
 BATCH = 1280
@@ -89,11 +115,26 @@ SIMS = 800  # flagship search
 # the 8x128 search runs 200 sims: with every search at 800 the whole run
 # passed 15 minutes, and the 8x128 path is the first to cut
 WIDE_SIMS = 200  # 8x128 search
-STRENGTH_SIMS = 800  # strength (VCT leaf solver) search
-LOSS_SIMS = 800  # strength search with the loss prover
-RENJU_SIMS = 800  # renju search with the VCF leaf solver
+# the strength, loss-prover and renju searches run 200 sims (800 before the
+# self-play phases came in): with self-play at 8 moves the whole run took
+# 1005 s at 400 and 843 s at 200 on an H100 80GB HBM3 (700 W) whose host
+# ran the self-play step at half the speed of another run's
+STRENGTH_SIMS = 200  # strength (VCT leaf solver) search
+LOSS_SIMS = 200  # strength search with the loss prover
+RENJU_SIMS = 200  # renju search with the VCF leaf solver
 CLUSTER_SIMS = 64  # renju search on the clustered boards, black to move
 LOSS2_CPU_BOARDS = 32  # boards of the level-2 loss proof checked on the CPU
+# self-play at the training manager's configuration (256 games, 100 sims,
+# max_nodes 208, max_depth 32, VCT; tools/selfplay_generation.py), cut to
+# SELFPLAY_MOVES of its 160 moves (23 to 38 s a move on the H100), played in
+# chunks of SELFPLAY_CHUNK with a stop after the first chunk and a resume
+# from the snapshot
+SELFPLAY_MOVES = 4
+SELFPLAY_CHUNK = 2
+# self-play to the end: the same with no leaf solver, TO_END_SIMS sims and
+# a draw horizon TO_END_PLIES plies past the openings
+TO_END_SIMS = 16
+TO_END_PLIES = 12
 WIDE_SEED = 0  # torch.Generator seed of the 8x128 network's weights
 H = W = 15
 
@@ -209,17 +250,19 @@ def backup_bytes(pn, K: int) -> int:
     return pn.shape[0] * (2 * 8 * pn.shape[1] + 4) + levels * (2 * 4 * K + 1 + 4 + 2 * 4)
 
 
-def backup_phase(tree: dict, tag: str) -> dict:
+BACKUP_ARGS = ("edge_score", "edge_action", "node_complete", "node_score", "pn", "ps",
+               "start_score")
+
+
+def backup_check(tree: dict, tag: str):
     """score_backup against score_backup_plain on clones of `tree` (a dict
-    of its seven arguments), the whole trees bit-equal; its device time
-    with the rows in L2 and after a 128 MB write that evicts them, its
-    call and plain times, and its bytes bound at this input's valid levels
-    and at full depth."""
+    of its seven arguments), the whole trees bit-equal.  Returns the
+    kernel's arguments (the clones it updated) and the count of scores it
+    changed."""
     import torch
     from alphagomoku_tpu_torch.ops import score_scan as SSM
 
-    names = ("edge_score", "edge_action", "node_complete", "node_score", "pn", "ps",
-             "start_score")
+    names = BACKUP_ARGS
     kernel_tree = {k: tree[k].clone() for k in names}
     plain_tree = {k: tree[k].clone() for k in names}
     SSM.score_backup(*(kernel_tree[k] for k in names))
@@ -230,8 +273,17 @@ def backup_phase(tree: dict, tag: str) -> dict:
         raise SystemExit(f"{tag}: kernel disagrees with the plain version in {differ}")
     changed = int((plain_tree["edge_score"] != tree["edge_score"]).sum()
                   + (plain_tree["node_score"] != tree["node_score"]).sum())
-    del plain_tree
-    args = [kernel_tree[k] for k in names]
+    return [kernel_tree[k] for k in names], changed
+
+
+def backup_phase(tree: dict, tag: str) -> dict:
+    """`backup_check`, then score_backup's device time with the rows in L2
+    and after a 128 MB write that evicts them, its call and plain times,
+    and its bytes bound at this input's valid levels and at full depth."""
+    import torch
+    from alphagomoku_tpu_torch.ops import score_scan as SSM
+
+    args, changed = backup_check(tree, tag)
     flush = torch.empty(32 << 20, dtype=torch.int32, device=args[0].device)
     ms = kernel_device_ms(lambda: SSM.score_backup(*args), "score_backup_kernel")
     cold_ms = kernel_device_ms(lambda: (flush.zero_(), SSM.score_backup(*args)),
@@ -304,104 +356,8 @@ def without_last(tw, name: str):
     return tw._replace(**{name: t})
 
 
+# steps traced by each profile phase
 PROFILE_STEPS = 5
-PHASES = ("mcts.select", "mcts.evaluate", "mcts.solve", "mcts.expand", "mcts.backup")
-
-
-def _traced(fn, reps: int):
-    """torch.profiler trace (CPU and CUDA) of `reps` calls of `fn`, and the
-    wall milliseconds per call under it."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    return prof, wall_ms
-
-
-def _device_kernels(prof):
-    """The trace's CUDA kernel entries (without the phases' device spans)."""
-    import torch
-
-    return [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in PHASES]
-
-
-def kernel_device_ms(fn, kernel: str, reps: int = 20) -> float:
-    """Mean device milliseconds per launch of the CUDA kernel whose name
-    contains `kernel`, over the launches that torch.profiler traced in
-    `reps` calls of `fn` (after one warm-up call).  Unlike CUDA events
-    around a call, this leaves out the host's time to enqueue the launch.
-    The profiler may miss a few launches of a kernel of a few microseconds
-    (4 of 20 once, after an 800-sim search): the mean is over those it
-    traced, and more than `reps` traced, or fewer than half, is a fault."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    prof, _ = _traced(fn, reps)
-    hits = [e for e in _device_kernels(prof) if kernel in e.key]
-    traced = sum(e.count for e in hits)
-    if not reps // 2 <= traced <= reps:
-        raise SystemExit(f"profiler: {traced} launches of {kernel} traced in {len(hits)} "
-                         f"entries, expected {reps}: {[(e.key, e.count) for e in hits]}")
-    if traced < reps:
-        print(f"profiler: {traced} of {reps} launches of {kernel} traced", flush=True)
-    return sum(e.self_device_time_total for e in hits) / traced / 1e3
-
-
-def _launched(event) -> tuple[int, float]:
-    """Kernels launched under a traced CPU event and its children: count
-    and device microseconds."""
-    n, us = len(event.kernels), sum(k.duration for k in event.kernels)
-    for child in event.cpu_children:
-        cn, cus = _launched(child)
-        n, us = n + cn, us + cus
-    return n, us
-
-
-def profile_steps(simulate, weights, state, steps: int) -> str:
-    """Run `steps` simulation steps under torch.profiler and describe
-    them: wall and device-busy milliseconds per step, kernel launches per
-    step, the host milliseconds, device milliseconds and launches of each
-    `mcts.*` phase per step, and the kernels that took the most device
-    time."""
-    import torch
-
-    box = [state]
-
-    def step():
-        with torch.no_grad():
-            box[0] = simulate(weights, box[0])
-
-    prof, wall_ms = _traced(step, steps)
-    kernels = _device_kernels(prof)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
-    phases = {name: {"host_ms": 0.0, "device_ms": 0.0, "launches": 0.0} for name in PHASES}
-    for e in prof.events():
-        if e.name in phases and e.device_type == torch.autograd.DeviceType.CPU:
-            n, us = _launched(e)
-            ph = phases[e.name]
-            ph["host_ms"] += e.cpu_time_total / 1e3 / steps
-            ph["device_ms"] += us / 1e3 / steps
-            ph["launches"] += n / steps
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    traced = {k: sum(e.count for e in kernels if k in e.key)
-              for k in ("convnext_trunk", "score_scan_kernel", "score_backup_kernel")}
-    return "profile: " + json.dumps({
-        "traced_launches": traced,
-        "steps": steps, "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
-        "device_busy_share": busy_ms / wall_ms,
-        "kernel_launches_per_step": sum(e.count for e in kernels) / steps,
-        "phases": phases,
-        "top_kernels_ms_per_step": {e.key[:70]: e.self_device_time_total / 1e3 / steps
-                                    for e in top},
-    })
 
 
 def trunk_phase(net, planes, tag: str) -> dict:
@@ -650,6 +606,267 @@ def solvers_phase(tables) -> None:
               f"{extra}", flush=True)
 
 
+class MoveChecks:
+    """`play_games_resumable`'s `on_move` hook: after each searched move,
+    the search's gates (node_count <= max_nodes, `sims` simulations on
+    every tree, at least 1 + `sims` visits on every unproven root, the
+    noisy root priors summing to 1 over the valid edges, and the lanes
+    reused being those the reuse rule picks from the previous move: its
+    move a root edge with an expanded child, and the tree with room for
+    `reserve` more nodes), the move's wall time and the share of lanes
+    reused."""
+
+    def __init__(self, tag: str, mcfg, scfg):
+        self.tag, self.mcfg, self.scfg = tag, mcfg, scfg
+        self.seconds, self.reused = [], []
+        self.prev = self.last = None
+
+    def start(self) -> None:
+        """Before a play call: its first move reuses nothing."""
+        import torch
+
+        torch.cuda.synchronize()
+        self.t = time.perf_counter()
+        self.prev = None
+
+    def fail(self, what: str):
+        raise SystemExit(f"{self.tag}: move {len(self.seconds)}: {what}")
+
+    def __call__(self, _, carry) -> None:
+        import torch
+        from alphagomoku_tpu_torch.search import mcts
+        from alphagomoku_tpu_torch.search import score as S
+
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        self.seconds.append(now - self.t)
+        self.t = now
+        st, sims = carry.search, self.scfg.num_simulations
+        tree = st.tree
+        rb = torch.arange(tree.batch, device=st.root_node.device)
+        if int(tree.node_count.max()) > self.mcfg.max_nodes:
+            self.fail("node_count exceeds max_nodes")
+        if not bool((st.sims_done == sims).all()):
+            self.fail(f"a tree did not run {sims} simulations")
+        proven = S.is_proven(tree.node_score[rb, st.root_node])
+        if not bool(((tree.node_visits[rb, st.root_node] >= 1 + sims) | proven).all()):
+            self.fail("an unproven root holds fewer than 1 + sims visits")
+        valid = tree.edge_action[rb, st.root_node] != mcts.NULL
+        total = torch.where(valid, st.noisy_prior, 0.0).sum(-1)
+        if not bool((((total - 1).abs() <= 1e-5) | ~valid.any(-1)).all()):
+            self.fail("the noisy root priors do not sum to 1 over the valid edges")
+        reused = st.root_node > 0
+        expected = torch.zeros_like(reused)
+        if self.prev is not None:
+            prev, move = self.prev.search, self.prev.prev_move.long()
+            hit = prev.tree.edge_action[rb, prev.root_node] == move[:, None]
+            child = prev.tree.edge_child[rb, prev.root_node, hit.int().argmax(-1)]
+            room = prev.tree.node_count + sims + 8 <= prev.tree.capacity
+            expected = hit.any(-1) & (child >= 0) & room
+        if not torch.equal(reused, expected):
+            self.fail("the lanes reused are not those the reuse rule picks")
+        self.reused.append(float(reused.float().mean()))
+        self.prev = self.last = carry
+
+
+def check_games(tag: str, env0, result, tables, draw_after: int) -> None:
+    """Every move recorded for a live game lies on an empty cell; the
+    recorded moves replayed through `env_step` on the CPU from the
+    openings give the recorded boards, outcomes and game lengths bit for
+    bit; the game lengths count the stones on the final boards.  (`tables`
+    holds no tensors: its functions build what they need on the device of
+    their inputs.)"""
+    import torch
+    from alphagomoku_tpu_torch.game import vectorized as V
+
+    rec = result.record
+    cell = rec.board.flatten(2).gather(2, rec.move.long()[..., None])[..., 0]
+    if not bool((cell[rec.alive] == 0).all()):
+        raise SystemExit(f"{tag}: a move recorded for a live game lies on an occupied cell")
+    env = V.EnvState(*[t.cpu() for t in env0])
+    boards, moves = rec.board.cpu(), rec.move.cpu().long()
+    for m in range(moves.shape[0]):
+        if not torch.equal(env.board, boards[m]):
+            raise SystemExit(f"{tag}: the CPU replay's board before move {m} differs")
+        env = V.env_step(tables, env, moves[m] // W, moves[m] % W, draw_after=draw_after)
+    if not (torch.equal(env.outcome, result.outcome.cpu())
+            and torch.equal(env.move_count, result.game_length.cpu())):
+        raise SystemExit(f"{tag}: the CPU replay's outcomes or game lengths differ")
+    if not torch.equal(env.move_count, (env.board != 0).sum((1, 2)).int()):
+        raise SystemExit(f"{tag}: move_count differs from the stones on the board")
+
+
+def selfplay_run(tag, weights, tables, mcfg, scfg, chunk: int, stop_after_first: bool):
+    """Balanced openings and `play_games_resumable` from a seeded
+    generator on the card, with the kernels' launch counts set to 0 just
+    before and read just after, `MoveChecks` on every move and the launch
+    gate (score_backup once a step; the trunk once a step, once a move for
+    the fresh roots, once for the openings and once per call for the first
+    roots); with `stop_after_first`, stopped after the first chunk and
+    resumed from the snapshot.  Returns the openings' env, the result, the
+    checks, the launch counts and the seconds (openings, games)."""
+    import torch
+    from alphagomoku_tpu_torch.ops import convnext_fused as CF
+    from alphagomoku_tpu_torch.ops import score_scan as SSM
+    from alphagomoku_tpu_torch.selfplay import play_games_resumable
+    from alphagomoku_tpu_torch.tools import selfplay_generation as SG
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    snap = ROOT / "build" / "chip_smoke" / f"{tag.replace(' ', '_')}_snapshot.npz"
+    snap.parent.mkdir(parents=True, exist_ok=True)
+    snap.unlink(missing_ok=True)
+    checks = MoveChecks(tag, mcfg, scfg)
+    SSM.score_scan.launches = SSM.score_backup.launches = CF.fused_trunk.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    env0 = SG.balanced_openings(weights, tables, gen, SG.GAMES)
+    torch.cuda.synchronize()
+    t_open = time.perf_counter() - t0
+
+    def run(stop):
+        checks.start()
+        return play_games_resumable(
+            CF.fused_apply, weights, tables, mcfg, scfg, gen, SG.GAMES, H, W,
+            chunk_moves=chunk, should_stop=stop, snapshot_path=str(snap), init_env=env0,
+            on_move=checks, device=dev)
+
+    calls = 1
+    if stop_after_first:
+        if run(lambda: True) is not None or not snap.exists():
+            raise SystemExit(f"{tag}: the run did not stop with a snapshot after its first chunk")
+        calls = 2
+    result = run(None)
+    torch.cuda.synchronize()
+    t_games = time.perf_counter() - t0 - t_open
+    launches = {"score_scan": SSM.score_scan.launches, "score_backup": SSM.score_backup.launches,
+                "fused_trunk": CF.fused_trunk.launches}
+    moves, sims = len(checks.seconds), scfg.num_simulations
+    want = {"score_scan": 0, "score_backup": moves * sims,
+            "fused_trunk": moves * (sims + 1) + 1 + calls}
+    if result is None or snap.exists() or launches != want:
+        raise SystemExit(f"{tag}: launches {launches}, expected {want} for {moves} moves "
+                         f"searched, or the run did not finish")
+    check_games(tag, env0, result, tables, scfg.draw_after)
+    return env0, result, checks, launches, (t_open, t_games)
+
+
+def selfplay_summary(tag, result, checks, launches, seconds, sims: int) -> str:
+    """The line of a self-play phase: times per move and step, the lanes
+    reused per move, the games finished and the launches."""
+    from alphagomoku_tpu_torch.game.types import GameOutcome
+
+    moves = len(checks.seconds)
+    ms_move = 1e3 * seconds[1] / moves
+    finished = int((result.outcome != int(GameOutcome.UNKNOWN)).sum())
+    return (f"{tag}: {len(result.outcome)} games, {moves} moves searched at {sims} sims: openings "
+            f"{seconds[0]:.3f} s, games {seconds[1]:.3f} s = {ms_move:.3f} ms per move, "
+            f"{ms_move / sims:.3f} ms per simulation step (median move "
+            f"{1e3 * statistics.median(checks.seconds):.3f} ms); lanes reused per move "
+            f"{[round(r, 4) for r in checks.reused]}; games finished {finished}; launches "
+            f"{launches}, {sum(launches.values()) / (moves * sims):.4f} of the kernels per step")
+
+
+def selfplay_phases(weights, tables, paths: dict) -> dict:
+    """Self-play at the training manager's configuration, cut to
+    SELFPLAY_MOVES moves, stopped and resumed, with the kernels held
+    against their plain versions at its shapes (the trunk at its batch,
+    score_backup on its last tree's paths of max_depth 32, the
+    `score_backup_kernel<32>` instantiation); then self-play to the end
+    (no leaf solver, TO_END_SIMS sims, a draw horizon TO_END_PLIES plies on)
+    with its targets, a replay-buffer round trip and the gate that tree
+    reuse took place from the second move on.  Returns `backup_phase`'s
+    dict for the self-play tree."""
+    import numpy as np
+    import torch
+    from alphagomoku_tpu_torch.data import ReplayBuffer
+    from alphagomoku_tpu_torch.game.types import GameOutcome
+    from alphagomoku_tpu_torch.ops import convnext_fused as CF
+    from alphagomoku_tpu_torch.patterns import features as FEAT
+    from alphagomoku_tpu_torch.search import mcts
+    from alphagomoku_tpu_torch.selfplay import make_targets
+    from alphagomoku_tpu_torch.tools import selfplay_generation as SG
+
+    mcfg, scfg = SG.manager_configs(max_moves=SELFPLAY_MOVES)
+    _, result, checks, paths["selfplay"], seconds = selfplay_run(
+        "selfplay", weights, tables, mcfg, scfg, SELFPLAY_CHUNK, stop_after_first=True)
+    print(selfplay_summary("selfplay", result, checks, paths["selfplay"], seconds,
+                           scfg.num_simulations), flush=True)
+    simulate = mcts.make_simulate_fn(CF.fused_apply, tables, mcfg)
+    profile = profile_steps(simulate, weights, checks.last.search, PROFILE_STEPS)
+    print(profile.replace("profile:", "profile selfplay:"), flush=True)
+    kernel_ms = json.loads(profile.removeprefix("profile: "))["traced_ms_per_launch"]
+    st = checks.last.search
+    planes = FEAT.unpack_raw_planes(FEAT.encode(tables, st.root_board, st.root_stm))
+    with torch.no_grad():
+        x = weights.net.stem_forward(planes).permute(0, 2, 3, 1).contiguous()
+        trunk = held(CF.fused_trunk_plain(x, weights.trunk), CF.fused_trunk(x, weights.trunk),
+                     CF.TRUNK_LIMITS)
+    if not trunk["ok"]:
+        raise SystemExit(f"selfplay: the trunk kernel disagrees with the plain version at "
+                         f"batch {x.shape[0]}: {trunk}")
+    print(f"selfplay: trunk kernel at B={x.shape[0]} on the last move's roots: "
+          f"{describe(trunk)}", flush=True)
+    # half the paths start from their leaf's score, half from the random
+    # generator's proven and unknown scores, as on the flagship tree; the
+    # kernel's device time is the traced self-play steps' (a profiler
+    # run of 20 lone launches after the big traces caught none)
+    pn, ps, leaf_score = most_visited_paths(st.tree, mcfg.max_depth)
+    games, K = leaf_score.shape[0], st.tree.edge_score.shape[2]
+    rand_start = torch.from_numpy(random_scan_inputs(games, 1, K, seed=3)[0]).to(pn.device)
+    start = torch.where(torch.arange(games, device=pn.device) % 2 == 0, leaf_score, rand_start)
+    _, changed = backup_check(dict(
+        edge_score=st.tree.edge_score, edge_action=st.tree.edge_action,
+        node_complete=st.tree.node_complete, node_score=st.tree.node_score, pn=pn, ps=ps,
+        start_score=start), "score_backup on the self-play tree")
+    levels = int((pn != -1).sum())
+    backup = dict(ms=kernel_ms["score_backup_kernel"],
+                  bound_ms=backup_bytes(pn, K) / HBM_BPS * 1e3,
+                  bound_full_depth_ms=backup_bytes(torch.zeros_like(pn), K) / HBM_BPS * 1e3,
+                  valid_levels=levels, changed=changed, trunk_ms=kernel_ms["convnext_trunk"])
+    print(f"score_backup on the self-play tree: bit-equal at B={games} N={st.tree.capacity} "
+          f"D={pn.shape[1]} K={K} ({levels} valid levels, {changed} scores changed); in the "
+          f"traced self-play steps {backup['ms']:.5f} ms a launch on the device (the trunk at "
+          f"B={games} {backup['trunk_ms']:.4f} ms), bound {backup['bound_ms']:.5f} ms at these "
+          f"valid levels, {backup['bound_full_depth_ms']:.5f} ms at full depth", flush=True)
+    del result, checks, simulate, st, planes, x, pn, ps, leaf_score, start
+
+    # to the end: every game ends within TO_END_PLIES plies; max_nodes
+    # stays at the manager's 208 (its formula at 16 sims, 40, leaves no
+    # room to reuse)
+    mcfg, scfg = SG.manager_configs(TO_END_SIMS, max_nodes=2 * SG.SIMS + 8, leaf_solver="none")
+    scfg = scfg._replace(draw_after=SG.OPENING_STONES + TO_END_PLIES)
+    _, result, checks, paths["selfplay_to_end"], seconds = selfplay_run(
+        "selfplay to the end", weights, tables, mcfg, scfg, SG.CHUNK_MOVES,
+        stop_after_first=False)
+    print(selfplay_summary("selfplay to the end", result, checks, paths["selfplay_to_end"],
+                           seconds, TO_END_SIMS), flush=True)
+    if not bool((result.outcome != int(GameOutcome.UNKNOWN)).all()):
+        raise SystemExit("selfplay to the end: a game has no final outcome")
+    if not all(r > 0 for r in checks.reused[1:]):
+        raise SystemExit("selfplay to the end: no lane reused its tree at a move after the first")
+    targets = make_targets(result, H * W)
+    valid = targets["valid"]
+    wdl = targets["value_wdl"][valid]
+    if not bool(valid.any()) or not bool((wdl.sum(-1) == 1).all()):
+        raise SystemExit("selfplay to the end: no valid sample, or a value_wdl row not summing "
+                         "to 1")
+    buffer, again = ReplayBuffer(), ReplayBuffer()
+    n = buffer.add_generation(0, targets)
+    path = ROOT / "build" / "chip_smoke" / "buffer_0.npz"
+    buffer.save_generation(0, str(path))
+    again.load_generation(0, str(path))
+    if not all(np.array_equal(buffer.generations[0][k], again.generations[0][k])
+               for k in buffer.generations[0]):
+        raise SystemExit("selfplay to the end: the replay buffer's save and load differ")
+    outcomes = result.outcome.long().bincount(minlength=4).tolist()
+    print(f"selfplay to the end: every game has a final outcome ({outcomes} unknown, draw, "
+          f"cross and circle wins); {n} valid samples, value_wdl rows sum to 1; the replay "
+          f"buffer's save and load are equal; the card's moves replayed on the CPU give the same "
+          f"boards and outcomes", flush=True)
+    return backup
+
+
 def main() -> int:
     import torch
 
@@ -837,6 +1054,11 @@ def main() -> int:
 
     # 16. the renju solvers on the card against CPU copies
     solvers_phase(renju)
+
+    # 17-18. self-play at the training manager's configuration, and to the
+    # end of every game
+    next(k for k in kernels if k["name"] == "score_backup")["selfplay_tree"] = selfplay_phases(
+        weights, tables, paths)
 
     trunk = dict(name="fused_trunk", route="cuda",
                  source="alphagomoku_tpu_torch/csrc/convnext_trunk.cu",

@@ -99,14 +99,19 @@ def _results(state, search, to_np) -> dict:
     return out
 
 
+def jax_tables(rules):
+    """The JAX package's tables for the batched paths, which classify by
+    bit math: only the threat table is read."""
+    return JV.RuleTables(pattern=None, threat=jnp.asarray(JT._build_threat_table(rules)),
+                         rules=int(rules))
+
+
 def jax_stub_search(rules, positions=None, **cfg) -> dict:
     """The JAX package's run_search with the stub network (the reference
     side of the stub tests and of their goldens) on `positions` (boards,
     stm), by default `boards_and_stm()`."""
     boards, stm = positions or boards_and_stm()
-    # the batched paths classify by bit math: only the threat table is read
-    jtables = JV.RuleTables(pattern=None, threat=jnp.asarray(JT._build_threat_table(rules)),
-                            rules=int(rules))
+    jtables = jax_tables(rules)
     jcfg = JAX_CFG._replace(**cfg)
     search = jax.jit(lambda b, s: JM.run_search(jax_stub, None, jtables, jcfg, b, s, SIMS))
     js = search(jnp.asarray(boards), jnp.asarray(stm))
@@ -140,7 +145,7 @@ def check_stub_search(rules, golden: str | None = None, positions=None, **cfg):
             assert np.array_equal(a.astype(np.int64), b.astype(np.int64)), name
     # the searches went through expansion, transpositions and proofs
     assert int(ts.stats.expansions.sum()) > 0
-    assert int(ts.stats.transpositions.sum()) > 0
+    assert (int(ts.stats.transpositions.sum()) > 0) == cfg.get("use_transpositions", True)
     assert TM.S.is_proven(ts.tree.edge_score).any()
     assert TM.S.is_loss(ts.tree.edge_score).any() or TM.S.is_draw(ts.tree.node_score).any()
     return ts
@@ -152,13 +157,12 @@ def test_stub_search_matches_jax_freestyle():
 
 def test_unported_config_raises():
     """Options outside the ported slice raise naming ROADMAP.md item 10:
-    another policy, leaf_batch > 1, root noise, symmetry averaging; and a
-    trunk width the kernel has no layout for.  The VCF and VCT leaf
-    solvers and the loss prover run."""
+    another policy, leaf_batch > 1, symmetry averaging; and a trunk width
+    the kernel has no layout for.  The VCF and VCT leaf solvers, the loss
+    prover and root noise run."""
     boards, stm = boards_and_stm()
     tables = TV.device_tables(GameRules.FREESTYLE)
     for cfg in (TORCH_CFG._replace(policy="ucb"), TORCH_CFG._replace(leaf_batch=2),
-                TORCH_CFG._replace(noise_weight=0.25),
                 TORCH_CFG._replace(symmetry_averaging=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
             TM.run_search(torch_stub, None, tables, cfg, boards, stm, 1, device="cpu")
@@ -166,6 +170,11 @@ def test_unported_config_raises():
         TM.run_search(torch_stub, None, tables,
                       TORCH_CFG._replace(leaf_solver=solver, loss_prover=True), boards, stm, 1,
                       device="cpu")
+    noisy = TORCH_CFG._replace(noise_weight=0.25)
+    noise = TM.sample_root_noise(noisy, len(boards), torch.Generator().manual_seed(0))
+    state = TM.run_search(torch_stub, None, tables, noisy, boards, stm, 1, device="cpu",
+                          noise=noise)
+    assert not torch.equal(state.noisy_prior, state.tree.edge_prior[:, 0].float())
     from alphagomoku_tpu_torch.ops import convnext_fused as CF
 
     x = torch.zeros((1, 15, 15, 256), dtype=torch.bfloat16)

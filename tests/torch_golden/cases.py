@@ -7,6 +7,7 @@ from __future__ import annotations
 
 from alphagomoku_tpu.game.types import GameRules
 
+from tests import test_torch_env as env_tests
 from tests import test_torch_mcts as mcts_tests
 from tests import test_torch_mcts_flagship as flagship_tests
 from tests import test_torch_loss_levels as loss_levels_tests
@@ -14,7 +15,10 @@ from tests import test_torch_loss_prover as loss_prover_tests
 from tests import test_torch_mcts_leafsolver as leafsolver_tests
 from tests import test_torch_mcts_solvers as solvers_tests
 from tests import test_torch_network as network_tests
+from tests import test_torch_openings as openings_tests
 from tests import test_torch_renju as renju_tests
+from tests import test_torch_reuse as reuse_tests
+from tests import test_torch_selfplay as selfplay_tests
 from tests import test_torch_score_scan as score_scan_tests
 from tests import test_torch_threats as threat_tests
 from tests import test_torch_vct as vct_tests
@@ -45,4 +49,14 @@ CASES = {
         GameRules.FREESTYLE, solvers_tests.tactical_positions(), **solvers_tests.VCT_LOSS),
     "stub_search_renju": lambda: mcts_tests.jax_stub_search(
         GameRules.RENJU, solvers_tests.tactical_positions(), **solvers_tests.RENJU_LOSS),
+    "env_renju": lambda: env_tests.jax_env_games(GameRules.RENJU, env_tests.RENJU_DRAW_AFTER),
+    "reuse_search": reuse_tests.jax_reuse_search,
+    "selfplay_reuse": lambda: selfplay_tests.jax_selfplay(tree_reuse=True),
+    "selfplay_fresh": lambda: selfplay_tests.jax_selfplay(tree_reuse=False),
+    "selfplay_resumed": lambda: selfplay_tests.jax_selfplay(tree_reuse=True, resumed=True),
+    "openings": openings_tests.jax_openings,
+    "stub_search_draw_after": lambda: mcts_tests.jax_stub_search(
+        GameRules.FREESTYLE, **solvers_tests.DRAW_HORIZON),
+    "stub_search_no_transpositions": lambda: mcts_tests.jax_stub_search(
+        GameRules.FREESTYLE, **solvers_tests.NO_TRANSPOSITIONS),
 }
