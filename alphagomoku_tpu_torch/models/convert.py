@@ -5,7 +5,10 @@ of numpy arrays, as `utils/checkpoint.load` or `flax.serialization`
 return them) and returns a `state_dict` for `networks.AGNetwork`, with the
 layouts converted: conv kernels HWIO -> OIHW (depthwise (7, 7, 1, C) ->
 (C, 1, 7, 7)), dense kernels (in, out) -> (out, in), BatchNorm
-scale/bias/mean/var -> weight/bias/running_mean/running_var.
+scale/bias/mean/var -> weight/bias/running_mean/running_var.  `to_flax`
+is its inverse: a network's `state_dict` back to the flax tree, float32
+numpy arrays in the flax layouts, which `utils/checkpoint.save` writes as
+the reference package's checkpoint.
 """
 
 from __future__ import annotations
@@ -101,3 +104,47 @@ def network_from_flax(
     net = create_network(arch, blocks=blocks, filters=filters, rows=rows, cols=cols)
     net.load_state_dict(from_flax(variables))
     return net.eval()
+
+
+_TOP_INV = {attr: scope for scope, attr in _TOP.items()}
+_CHILD_INV = {kind: {attr: scope for scope, attr in m.items()} for kind, m in _CHILD.items()}
+_LEAF_INV = {(kind, attr): leaf for (kind, leaf), attr in _LEAF.items()}
+
+
+def _flax_path(key: str) -> tuple[str, ...]:
+    """state_dict key -> (collection, scope, ..., leaf)."""
+    parts = key.split(".")
+    if parts[0] == "blocks":
+        scopes, rest = [f"ConvNextBlock_{parts[1]}"], parts[2:]
+    else:
+        scopes, rest = [_TOP_INV[parts[0]]], parts[1:]
+    while _kind(scopes[-1]) in _CHILD_INV and rest[0] in _CHILD_INV[_kind(scopes[-1])]:
+        scopes.append(_CHILD_INV[_kind(scopes[-1])][rest[0]])
+        rest = rest[1:]
+    leaf = _LEAF_INV[(_kind(scopes[-1]), ".".join(rest))]
+    return ("batch_stats" if leaf in ("mean", "var") else "params", *scopes, leaf)
+
+
+def to_flax(state_dict: dict[str, torch.Tensor]) -> dict:
+    """AGNetwork state_dict -> flax {"params", "batch_stats"} tree of float32
+    numpy arrays (conv kernels OIHW -> HWIO, dense kernels (out, in) ->
+    (in, out)), each collection's keys sorted as in the reference
+    package's checkpoints."""
+    tree: dict = {"params": {}, "batch_stats": {}}
+    for key, t in state_dict.items():
+        path = _flax_path(key)
+        a = t.detach().to("cpu", torch.float32).numpy()
+        kind = _kind(path[-2])
+        if path[-1] == "kernel" and kind == "Conv":
+            a = a.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        elif path[-1] == "kernel" and kind == "Dense":
+            a = a.T  # (out, in) -> (in, out)
+        node = tree
+        for scope in path[:-1]:
+            node = node.setdefault(scope, {})
+        node[path[-1]] = np.ascontiguousarray(a)
+
+    def ordered(node):
+        return {k: ordered(node[k]) for k in sorted(node)} if isinstance(node, dict) else node
+
+    return {coll: ordered(sub) for coll, sub in tree.items()}

@@ -41,6 +41,7 @@ class ModelConfig:
     heads: str = "pvqm"  # subset of "pvqms", p and v mandatory
     raw_input: bool = True  # 8 raw planes instead of 32 feature planes
     input_kernel: int = 5
+    dtype: torch.dtype = torch.bfloat16  # compute dtype (parameters stay float32)
 
     @property
     def input_planes(self) -> int:
@@ -61,34 +62,45 @@ class AGNetwork(nn.Module):
         super().__init__()
         if cfg.trunk != "convnext":
             raise NotImplementedError(TRUNK_NOT_PORTED.format(cfg.trunk))
-        f = cfg.filters
+        f, dt = cfg.filters, cfg.dtype
         self.cfg = cfg
-        self.stem = B.ConvBN(cfg.input_planes, f, cfg.input_kernel)
-        self.blocks = nn.ModuleList(B.ConvNextBlock(f) for _ in range(cfg.blocks))
-        self.policy = B.PolicyHead(f, 1)
-        self.value = B.ValueHead(f, min(256, 2 * f))
-        self.q = B.ActionValuesHead(f, 1) if "q" in cfg.heads else None
-        self.moves_left = B.MovesLeftHead(f, rows * cols) if "m" in cfg.heads else None
-        self.soft_policy = B.PolicyHead(f, 1) if "s" in cfg.heads else None
+        self.stem = B.ConvBN(cfg.input_planes, f, cfg.input_kernel, dtype=dt)
+        self.blocks = nn.ModuleList(B.ConvNextBlock(f, dt) for _ in range(cfg.blocks))
+        self.policy = B.PolicyHead(f, 1, dt)
+        self.value = B.ValueHead(f, min(256, 2 * f), dt)
+        self.q = B.ActionValuesHead(f, 1, dt) if "q" in cfg.heads else None
+        self.moves_left = B.MovesLeftHead(f, rows * cols, dtype=dt) if "m" in cfg.heads else None
+        self.soft_policy = B.PolicyHead(f, 1, dt) if "s" in cfg.heads else None
 
-    def stem_forward(self, planes: torch.Tensor) -> torch.Tensor:
-        """NHWC planes -> NCHW bf16 stem activation."""
-        return self.stem(planes.permute(0, 3, 1, 2).to(B.BF16))
+    def stem_forward(self, planes: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """NHWC planes -> NCHW stem activation in the compute dtype."""
+        return self.stem(planes.permute(0, 3, 1, 2).to(self.cfg.dtype), train)
 
-    def heads_forward(self, x: torch.Tensor) -> NetOutput:
-        """NCHW bf16 trunk activation -> head logits."""
-        opt = lambda head: head(x) if head is not None else None
+    def heads_forward(self, x: torch.Tensor, train: bool = False) -> NetOutput:
+        """NCHW trunk activation -> head logits."""
+        opt = lambda head: head(x, train) if head is not None else None
         return NetOutput(
-            self.policy(x), self.value(x), opt(self.q), opt(self.moves_left),
+            self.policy(x, train), self.value(x, train), opt(self.q), opt(self.moves_left),
             opt(self.soft_policy),
         )
 
+    def _run(self, planes: torch.Tensor, train: bool) -> NetOutput:
+        x = self.stem_forward(planes, train)
+        for blk in self.blocks:
+            x = blk(x, train)
+        return self.heads_forward(x, train)
+
     @torch.no_grad()
     def forward(self, planes: torch.Tensor) -> NetOutput:
-        x = self.stem_forward(planes)
-        for blk in self.blocks:
-            x = blk(x)
-        return self.heads_forward(x)
+        """Inference on the running BatchNorm statistics, whatever the
+        module's train/eval mode (flax `apply(train=False)`)."""
+        return self._run(planes, False)
+
+    def forward_train(self, planes: torch.Tensor) -> NetOutput:
+        """The differentiable training forward: BatchNorm on the batch's
+        statistics, with the running averages updated in place (flax
+        `apply(train=True, mutable=["batch_stats"])`)."""
+        return self._run(planes, True)
 
 
 # ---------------------------------------------------------------------------
@@ -123,7 +135,8 @@ _REGISTRY: dict[str, dict] = {
 }
 
 
-def model_config(arch: str, blocks: int | None = None, filters: int | None = None) -> ModelConfig:
+def model_config(arch: str, blocks: int | None = None, filters: int | None = None,
+                 dtype: torch.dtype = torch.bfloat16) -> ModelConfig:
     if arch not in _REGISTRY:
         raise ValueError(f"unknown architecture {arch!r}; known: {sorted(_REGISTRY)}")
     kw = dict(_REGISTRY[arch])
@@ -131,15 +144,15 @@ def model_config(arch: str, blocks: int | None = None, filters: int | None = Non
         kw["blocks"] = blocks
     if filters is not None:
         kw["filters"] = filters
-    return ModelConfig(**kw)
+    return ModelConfig(**kw, dtype=dtype)
 
 
 def create_network(
     arch: str, blocks: int | None = None, filters: int | None = None,
-    rows: int = 15, cols: int = 15,
+    rows: int = 15, cols: int = 15, dtype: torch.dtype = torch.bfloat16,
 ) -> AGNetwork:
     """Factory matching the reference's createAGNetwork(architecture)."""
-    return AGNetwork(model_config(arch, blocks, filters), rows, cols)
+    return AGNetwork(model_config(arch, blocks, filters, dtype), rows, cols)
 
 
 def list_architectures() -> list[str]:
@@ -167,6 +180,29 @@ def init_random_(net: AGNetwork, generator: torch.Generator) -> AGNetwork:
             p.copy_(noise / p[0].numel() ** 0.5)
         else:
             p.copy_(_BIAS_STD * noise)
+    return net
+
+
+@torch.no_grad()
+def init_flax_(net: AGNetwork, generator: torch.Generator) -> AGNetwork:
+    """Fill `net` in place as flax's default initializers fill a fresh
+    network (the draws are `generator`'s, not `jax.random`'s): conv and
+    dense kernels from `lecun_normal` (a normal of variance 1/fan_in
+    truncated at two standard deviations), biases and BatchNorm shifts 0,
+    BatchNorm scales 1, statistics mean 0 and variance 1.  Returns `net`."""
+    bn_scales = {id(m.weight) for m in net.modules() if isinstance(m, B.BatchNorm)}
+    for p in net.parameters():
+        if id(p) in bn_scales:
+            p.fill_(1.0)
+        elif p.dim() > 1:  # conv (O, I, kh, kw) or dense (O, I) kernel
+            std = (1.0 / p[0].numel()) ** 0.5 / 0.87962566103423978
+            nn.init.trunc_normal_(p, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+        else:
+            p.zero_()
+    for m in net.modules():
+        if isinstance(m, B.BatchNorm):
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)
     return net
 
 

@@ -10,13 +10,14 @@ only), and bf16 casts at the same points.
 
 `fused_apply(weights, planes)` is the full ConvNextPVQMraw forward (stem,
 fused trunk, heads) with its weights passed in explicitly as a
-`FusedWeights` (built once by `pack_weights`).  On the card it is the
-network `search.mcts.run_search` evaluates.  The stem conv and the heads
+`FusedWeights` (built by `pack_weights` from a snapshot of the network).
+On the card it is the network `search.mcts.run_search` evaluates.  The stem conv and the heads
 stay plain PyTorch ops, as they stay XLA ops in the reference package.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import NamedTuple
 
 import torch
@@ -190,10 +191,18 @@ class FusedWeights(NamedTuple):
     trunk: TrunkWeights
 
 
+@torch.no_grad()
 def pack_weights(net: AGNetwork) -> FusedWeights:
+    """`FusedWeights` of a snapshot of `net`: the stem and heads are a
+    detached copy of its modules (no gradients) and the trunk is packed
+    from the same values, so training `net` afterwards changes neither, and
+    `net` keeps its train/eval mode.  Pack again after an optimizer step."""
     if net.cfg.trunk != "convnext":
         raise NotImplementedError(f"fused forward needs the convnext trunk, got {net.cfg.trunk}")
-    return FusedWeights(net.eval(), pack_trunk_weights(net))
+    snap = copy.deepcopy(net).eval().requires_grad_(False)
+    for p in snap.parameters():
+        p.grad = None
+    return FusedWeights(snap, pack_trunk_weights(snap))
 
 
 @torch.no_grad()

@@ -22,6 +22,7 @@ import torch
 
 from ..game.types import NONE, CROSS, CIRCLE, GameRules
 from ..game import vectorized as V
+from ..utils import augment
 from . import bitwise
 from . import tables as T
 
@@ -86,3 +87,33 @@ def unpack_raw_planes(packed: torch.Tensor, dtype=torch.bfloat16) -> torch.Tenso
     (reference: networks.cpp raw input = H*W*8)."""
     bits = torch.arange(8, device=packed.device)
     return ((packed[..., None] >> bits) & 1).to(dtype)
+
+
+def _shuffle_directions(packed: torch.Tensor, perm) -> torch.Tensor:
+    """Permute direction bits in groups 8-11, 12-15, 20-23, 24-27:
+    new direction i takes old direction perm[i]
+    (reference: NNInputFeatures.cpp:33-51 shuffle_directions)."""
+    base = (1 << 8) | (1 << 12) | (1 << 20) | (1 << 24)
+    out = packed & 0xF00F00FF
+    for i in range(4):
+        out = out | (((packed >> perm[i]) & base) << i)
+    return out
+
+
+def augment_features(packed: torch.Tensor, mode: int) -> torch.Tensor:
+    """Apply a symmetry (a Python int): spatial transform + direction-bit
+    shuffle (reference: NNInputFeatures::augment, NNInputFeatures.cpp:111-155)."""
+    out = augment.apply_symmetry(packed, mode)
+    perm = augment.DIRECTION_PERM[mode]
+    if perm != (0, 1, 2, 3):
+        out = _shuffle_directions(out, perm)
+    return out
+
+
+def augment_features_batch(packed: torch.Tensor, modes: torch.Tensor) -> torch.Tensor:
+    """Per-sample symmetry over a batch [B, H, W], modes int [B]."""
+    out = packed
+    sel = modes[:, None, None]
+    for m in range(1, augment.num_symmetries(*packed.shape[-2:])):
+        out = torch.where(sel == m, augment_features(packed, m), out)
+    return out

@@ -2,10 +2,10 @@
 in lockstep by one simulation per tree per step.
 
 Port of the reference package's `search/mcts.py` under all five rules at
-`policy="puct"`, `init_to="parent"`, `leaf_batch=1`, no symmetry
-averaging, no NNUE; transpositions on (or off); root noise of the three
-types (dirichlet, gumbel, custom) and the between-move subtree carry-over
-of self-play (`reuse_or_init_root`); the leaf solver off,
+`policy="puct"`, `init_to="parent"`, `leaf_batch=1`, with or without
+symmetry averaging, no NNUE; transpositions on (or off); root noise of
+the three types (dirichlet, gumbel, custom) and the between-move subtree
+carry-over of self-play (`reuse_or_init_root`); the leaf solver off,
 `leaf_solver="vcf"` (`search/vcf.py`) or `"vct"` (the engine default,
 `search/vct_batched.py`), with or without the loss prover
 (`vct_batched.prepare_loss` / `finish_loss` at the leaves, `solve_loss` at
@@ -58,6 +58,7 @@ from ..game.types import CROSS, CIRCLE, GameOutcome
 from ..game import vectorized as V
 from ..models.networks import postprocess
 from ..patterns import features as F
+from ..utils import augment as AUG
 from ..ops.score_scan import score_backup
 from . import score as S
 from . import static_solver
@@ -109,7 +110,6 @@ def check_config(cfg: MCTSConfig) -> None:
         (cfg.policy == "puct", f"policy={cfg.policy!r}"),
         (cfg.init_to == "parent", f"init_to={cfg.init_to!r}"),
         (cfg.leaf_batch == 1, f"leaf_batch={cfg.leaf_batch}"),
-        (not cfg.symmetry_averaging, "symmetry_averaging"),
     ]
     for ok, what in checks:
         if not ok:
@@ -399,14 +399,28 @@ def _apply_proofs(analysis: static_solver.StaticAnalysis, policy: torch.Tensor,
 
 
 def _evaluate(
-    net_apply: Callable, variables: Any, tables: V.RuleTables, board, stm, raw_input: bool
+    net_apply: Callable, variables: Any, tables: V.RuleTables, board, stm, raw_input: bool,
+    sym_modes: torch.Tensor | None = None,
 ):
     """NN forward on [B, H, W] boards: (policy [B, H, W] masked probs, value
     (win, draw) [B, 2], q_expect [B, H, W], moves_left [B], legal mask,
-    packed features)."""
+    packed features).
+
+    `sym_modes` [B] applies a per-sample board symmetry before the network
+    and the inverse to the spatial outputs: random per-evaluation symmetry
+    averaging (reference: NNEvaluator random augmentation + inverse unpack,
+    NNEvaluator.cpp:134-141,263-286)."""
     packed = F.encode(tables, board, stm)
-    planes = F.unpack_raw_planes(packed) if raw_input else F.unpack_planes(packed)
+    packed_in = packed if sym_modes is None else F.augment_features_batch(packed, sym_modes)
+    planes = F.unpack_raw_planes(packed_in) if raw_input else F.unpack_planes(packed_in)
     out = net_apply(variables, planes)
+    if sym_modes is not None:
+        q = out.q_logits
+        out = out._replace(
+            policy_logits=AUG.inverse_symmetry_batch(out.policy_logits, sym_modes),
+            q_logits=(None if q is None else AUG.inverse_symmetry_batch(
+                q.permute(0, 3, 1, 2), sym_modes).permute(0, 2, 3, 1)),
+        )
     legal = ((packed & 1) == 1) & ~(((packed >> 6) & 1) == 1)
     ev = postprocess(out, legal)
     if ev.q is not None:
@@ -537,8 +551,13 @@ def make_simulate_fn(
             outcome = torch.where(need, outcome, int(GameOutcome.UNKNOWN))
             terminal = outcome != int(GameOutcome.UNKNOWN)
             term_score = S.from_outcome(outcome, stm)  # the leaf's own view
+            sym = None
+            if cfg.symmetry_averaging:
+                # deterministic pseudo-random per-evaluation symmetry: varies
+                # by step counter and reached cell
+                sym = (move_r * 3 + move_c * 5 + state.sims_done) % AUG.num_symmetries(h, w)
             policy, value, _, moves_left, legal, packed = _evaluate(
-                net_apply, variables, tables, boardc, stm, raw_input
+                net_apply, variables, tables, boardc, stm, raw_input, sym
             )
             value = torch.where(terminal[:, None], S.convert_to_value(term_score), value)
             analysis = static_solver.analyze(packed, legal, dtd)

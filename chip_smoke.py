@@ -84,6 +84,29 @@ Phases, one line each (any failure exits non-zero):
      every move after the first, `make_targets` gives valid samples whose
      value_wdl rows sum to 1, and a ReplayBuffer saved and loaded in
      build/chip_smoke/ gives equal arrays;
+ 19. train - the training manager (`training/manager.py`) at its
+     defaults, resumed from a temporary copy of runs/flagship_r4/'s
+     checkpoints and records (network_28, best 23, 11,600 learning
+     steps): the replay window of the last 20 iterations filled through
+     `generate_games`' skip path from buffer files holding phase 18's
+     generation (split into train and validation samples as the manager
+     splits them; the reference run's own buffers are not read, so the
+     phase runs the same in a copy that leaves them out); one train step on the card held
+     against the same step on a CPU copy (32 samples, same symmetries,
+     the CPU tests' tolerances); `train_iteration(29)`, 200 steps at
+     batch 256 (steps per second, peak device memory, finite losses,
+     learning_steps 11,800, network_29 and network_swa read back, the
+     history line; the per-head means beside the JAX run's iteration-28
+     line); `_host_vars()` after training: the trunk kernel on the new
+     pack within TRUNK_LIMITS and timed, the pack equal to the trained
+     weights, the fused forward within HEAD_LIMITS of the plain-trunk
+     forward and within tests/test_ops.py's absolute rule of the trained
+     module's own forward, the module still in train mode; `gating(29)` cut through the config to
+     `TRAIN_GATING_GAMES` games at `TRAIN_GATING_SIMS` sims, with
+     balanced openings, its launches counted (score_backup once a search
+     step, the trunk once more per search and once for the openings):
+     gating.txt's line, the pentanomial over the pairs, every game ended,
+     every live move on an empty cell; the seconds of each stage;
 then a `kernels` JSON line and, last, {"ok": true, "device": {...}}.
 
 A kernel's `ms` is its device time per launch: for score_scan and
@@ -128,9 +151,10 @@ LOSS2_CPU_BOARDS = 32  # boards of the level-2 loss proof checked on the CPU
 # max_nodes 208, max_depth 32, VCT; tools/selfplay_generation.py), cut to
 # SELFPLAY_MOVES of its 160 moves (23 to 38 s a move on the H100), played in
 # chunks of SELFPLAY_CHUNK with a stop after the first chunk and a resume
-# from the snapshot
-SELFPLAY_MOVES = 4
-SELFPLAY_CHUNK = 2
+# from the snapshot (4 moves in chunks of 2 until the training phase came
+# in)
+SELFPLAY_MOVES = 2
+SELFPLAY_CHUNK = 1
 # self-play to the end: the same with no leaf solver, TO_END_SIMS sims and
 # a draw horizon TO_END_PLIES plies past the openings
 TO_END_SIMS = 16
@@ -776,7 +800,8 @@ def selfplay_phases(weights, tables, paths: dict) -> dict:
     (no leaf solver, TO_END_SIMS sims, a draw horizon TO_END_PLIES plies on)
     with its targets, a replay-buffer round trip and the gate that tree
     reuse took place from the second move on.  Returns `backup_phase`'s
-    dict for the self-play tree."""
+    dict for the self-play tree and the to-the-end generation's targets,
+    the replay window of phase 19."""
     import numpy as np
     import torch
     from alphagomoku_tpu_torch.data import ReplayBuffer
@@ -864,7 +889,288 @@ def selfplay_phases(weights, tables, paths: dict) -> dict:
           f"cross and circle wins); {n} valid samples, value_wdl rows sum to 1; the replay "
           f"buffer's save and load are equal; the card's moves replayed on the CPU give the same "
           f"boards and outcomes", flush=True)
-    return backup
+    return backup, targets
+
+
+RUN = ROOT / "runs" / "flagship_r4"
+# phase 19's gating, cut through the manager's own configuration: 2
+# balanced openings (4 games) at 4 sims a move (the defaults: 64 games at
+# 100).  The match runs until every game has ended, so one game drawn on a
+# full board costs 221 plies of two searches (a CPU rehearsal at 2 sims
+# drew one of 8 games that way)
+TRAIN_GATING_GAMES = 4
+TRAIN_GATING_SIMS = 4
+TRAIN_CHECK_SAMPLES = 32  # samples of the train step held against the CPU
+
+
+def _step_on(net, batch: dict, modes, dtype=None) -> dict:
+    """One train step of a copy of `net` on `batch`'s device (and, with
+    `dtype`, at that compute dtype): the losses, gradients and BatchNorm
+    statistics after it, on the host, by state_dict key."""
+    import copy
+    import torch
+    from alphagomoku_tpu_torch.game import vectorized as V
+    from alphagomoku_tpu_torch.game.types import GameRules
+    from alphagomoku_tpu_torch.models.networks import create_network
+    from alphagomoku_tpu_torch.training import train as T
+
+    dev = batch["board"].device
+    if dtype is None:
+        copy_ = copy.deepcopy(net).to(dev)
+    else:
+        copy_ = create_network("ConvNextPVQMraw", net.cfg.blocks, net.cfg.filters, H, W, dtype)
+        copy_.load_state_dict(net.state_dict())
+        copy_ = copy_.to(dev)
+    cfg = T.TrainConfig()
+    state, tx = T.create_train_state(copy_, cfg)
+    _, parts = T.make_train_step(copy_, tx, V.device_tables(GameRules.FREESTYLE), cfg)(
+        state, batch, modes.to(dev))
+    return {"loss": {k: float(v) for k, v in parts.items()},
+            "grads": {k: p.grad.float().cpu() for k, p in copy_.named_parameters()},
+            "stats": {k: b.float().cpu() for k, b in copy_.named_buffers()}}
+
+
+def _rel(a, b, floor: float = 1e-30) -> float:
+    return float((a.double() - b.double()).norm() / max(float(a.double().norm()), floor))
+
+
+def hold_train_step(net, batch_np: dict) -> str:
+    """The train step on the card against the same step on a CPU copy, on
+    the first TRAIN_CHECK_SAMPLES samples with the same modes, at the CPU
+    tests' tolerances (tests/test_torch_train.py): losses within
+    1e-2 max(1, |loss|), BatchNorm statistics within 1e-2 relative L2; the
+    card's bfloat16 gradients no farther from a float32 CPU step's than the
+    CPU's bfloat16 ones (over all tensors within 1.25 times, each tensor
+    within twice, at least 0.1 and at most 0.5; norms floored at 1e-3 of
+    the largest)."""
+    import torch
+    from alphagomoku_tpu_torch.training import train as T
+
+    n = TRAIN_CHECK_SAMPLES
+    host = {k: torch.from_numpy(v[:n]) for k, v in batch_np.items()}
+    modes = T.draw_modes(torch.Generator().manual_seed(0), n, H, W)
+    card = _step_on(net, {k: v.cuda() for k, v in host.items()}, modes)
+    cpu = _step_on(net, host, modes)
+    exact = _step_on(net, host, modes, torch.float32)
+    for k, v in cpu["loss"].items():
+        if not abs(card["loss"][k] - v) <= 1e-2 * max(1.0, abs(v)):
+            raise SystemExit(f"train: loss {k} on the card {card['loss'][k]} vs the CPU {v}")
+    worst_stat = max(_rel(cpu["stats"][k], card["stats"][k]) for k in cpu["stats"])
+    if not worst_stat <= 1e-2:
+        raise SystemExit(f"train: BatchNorm statistics differ by {worst_stat} from the CPU's")
+    floor = 1e-3 * max(float(g.norm()) for g in exact["grads"].values())
+    worst = 0.0
+    for k, g in exact["grads"].items():
+        d_cpu, d_card = _rel(g, cpu["grads"][k], floor), _rel(g, card["grads"][k], floor)
+        if not d_card <= min(max(2 * d_cpu, 0.1), 0.5):
+            raise SystemExit(f"train: gradient {k} on the card {d_card} from float32, the "
+                             f"CPU's {d_cpu}")
+        worst = max(worst, d_card)
+    flat = lambda t: torch.cat([t[k].flatten() for k in exact["grads"]])
+    g_cpu, g_card = _rel(flat(exact["grads"]), flat(cpu["grads"])), _rel(
+        flat(exact["grads"]), flat(card["grads"]))
+    if not g_card <= 1.25 * g_cpu:
+        raise SystemExit(f"train: the card's gradients {g_card} from float32, the CPU's {g_cpu}")
+    return (f"train step on the card vs the CPU at B={n}: losses within 1e-2 "
+            f"({', '.join(f'{k} {v:.5f}/{cpu['loss'][k]:.5f}' for k, v in card['loss'].items())}); "
+            f"statistics worst {worst_stat:.3g}; gradients from a float32 step: card "
+            f"{g_card:.4f}, CPU {g_cpu:.4f} over all tensors, the card's worst tensor "
+            f"{worst:.4f}")
+
+
+def train_phase(paths: dict, generation: dict) -> dict:
+    """19. train: the training manager (`training/manager.py`) at its
+    defaults, resumed from a copy of runs/flagship_r4/'s checkpoints and
+    records (network_28, best 23); the replay window's buffer files written
+    from `generation` (phase 18's targets, split into train and validation
+    samples as the manager splits them, the same files for each of the 20
+    iterations) and loaded through the manager's own skip path; one train
+    step held against the CPU; `train_iteration(29)` (200 steps at batch
+    256); the trunk kernel and the fused forward on the freshly packed
+    trained weights; gating (`gating(29)`, cut through the config) with
+    its launches counted.  Returns the trunk kernel's figures on the
+    trained pack."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from alphagomoku_tpu_torch.data import ReplayBuffer
+    from alphagomoku_tpu_torch.game.types import GameOutcome
+    from alphagomoku_tpu_torch.models.convert import from_flax
+    from alphagomoku_tpu_torch.ops import convnext_fused as CF
+    from alphagomoku_tpu_torch.ops import score_scan as SSM
+    from alphagomoku_tpu_torch.patterns import features as FEAT
+    from alphagomoku_tpu_torch.training import manager as TMGR
+    from alphagomoku_tpu_torch.training import train as T
+    from alphagomoku_tpu_torch.utils import checkpoint
+
+    stage = {}
+    t0 = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    wd = Path(tmp.name) / "run"
+    shutil.copytree(RUN, wd, ignore=shutil.ignore_patterns("train_buffer", "valid_buffer"))
+    mgr = TMGR.TrainingManager(TMGR.ManagerConfig(
+        working_dir=str(wd), gating_games=TRAIN_GATING_GAMES,
+        num_simulations=TRAIN_GATING_SIMS), device="cuda")
+    if mgr.metadata != {"last_checkpoint": 28, "best_checkpoint": 23, "learning_steps": 11600}:
+        raise SystemExit(f"train: the manager resumed {mgr.metadata}")
+    tv = generation["valid"].cpu().numpy()
+    split = np.random.default_rng(0).random(tv.shape) < mgr.cfg.validation_fraction
+    parts = {"train_buffer": ReplayBuffer(), "valid_buffer": ReplayBuffer()}
+    parts["train_buffer"].add_generation(0, dict(generation, valid=tv & ~split))
+    parts["valid_buffer"].add_generation(0, dict(generation, valid=tv & split))
+    first = 29 - mgr.cfg.buffer_window
+    SSM.score_backup.launches = CF.fused_trunk.launches = 0
+    for i in range(first, 29):
+        for sub, buf in parts.items():
+            buf.save_generation(0, str(wd / sub / f"buffer_{i}.npz"))
+        mgr.generate_games(i)
+        mgr.valid_buffer.load_generation(i, str(wd / "valid_buffer" / f"buffer_{i}.npz"))
+    samples = mgr.buffer.num_samples
+    if (sorted(mgr.buffer.generations) != list(range(first, 29)) or CF.fused_trunk.launches
+            or samples != mgr.cfg.buffer_window * parts["train_buffer"].num_samples):
+        raise SystemExit("train: the replay window did not load through the skip path")
+    stage["resume"] = time.perf_counter() - t0
+    print(f"train: resumed {mgr.metadata} on {wd.name}; replay window {first}..28 (phase 18's "
+          f"generation in each) loaded through generate_games' skip path: {samples} samples, "
+          f"valid {mgr.valid_buffer.num_samples}", flush=True)
+
+    t0 = time.perf_counter()
+    print(hold_train_step(mgr.net, mgr.buffer.sample(TRAIN_CHECK_SAMPLES,
+                                                     np.random.default_rng(0))), flush=True)
+    stage["step_check"] = time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    mean = mgr.train_iteration(29)
+    torch.cuda.synchronize()
+    stage["train_iteration"] = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    steps_s = mgr.cfg.train_steps_per_iteration / mgr.last_timings["train_steps"]
+    if not all(np.isfinite(v) for v in mean.values()) or CF.fused_trunk.launches:
+        raise SystemExit(f"train: a loss is not finite, or training launched the trunk: {mean}")
+    if mgr.metadata["learning_steps"] != 11800 or mgr.metadata["last_checkpoint"] != 29:
+        raise SystemExit(f"train: metadata after the iteration {mgr.metadata}")
+    live = {k: v.detach().cpu().numpy() for k, v in mgr.net.state_dict().items()}
+    back = from_flax(checkpoint.load(mgr.checkpoint_path(29)))
+    swa = checkpoint.load(mgr.checkpoint_path(0, swa=True))
+    avg = T.average_params([checkpoint.load(mgr.checkpoint_path(i))["params"]
+                            for i in range(20, 30)])
+    swa_ok = (all(np.array_equal(back[k].numpy(), v) for k, v in live.items())
+              and _same_tree(swa["params"], avg)
+              and _same_tree(swa["batch_stats"], checkpoint.load(mgr.checkpoint_path(29))[
+                  "batch_stats"]))
+    hist = json.loads((wd / "training_history.txt").read_text().splitlines()[-1])
+    if not swa_ok or hist["iteration"] != 29:
+        raise SystemExit("train: network_29 or network_swa do not read back as the live "
+                         "weights and the last ten checkpoints' mean, or no history line")
+    ref = json.loads((RUN / "training_history.txt").read_text().splitlines()[-1])
+    heads = ("policy", "value", "q", "moves_left", "total")
+    print(f"train: train_iteration(29): 200 steps at batch {mgr.cfg.train_batch_size}, "
+          f"{steps_s:.3f} steps/s ({mgr.last_timings['train_steps']:.3f} s of steps, "
+          f"{stage['train_iteration']:.3f} s with validation, checkpoint and SWA), peak device "
+          f"memory {peak} bytes ({peak - base} over the {base} held before); learning_steps "
+          f"{mgr.metadata['learning_steps']}; network_29 and network_swa read back equal; "
+          f"means {json.dumps({k: round(mean[k], 5) for k in heads})} valid "
+          f"{json.dumps({k: round(v, 5) for k, v in mean.items() if k.startswith('valid_')})}; "
+          f"for the reader, the JAX run's iteration 28 on its TPU: "
+          f"{json.dumps({k: round(ref[k], 5) for k in heads})}", flush=True)
+
+    # the hand-over: a fresh pack of the trained module
+    t0 = time.perf_counter()
+    weights = mgr._host_vars()
+    batch = mgr.buffer.sample(256, np.random.default_rng(1))
+    boards = torch.from_numpy(batch["board"]).cuda()
+    stm = torch.from_numpy(batch["stm"]).cuda()
+    planes = FEAT.unpack_raw_planes(FEAT.encode(mgr.tables, boards, stm))
+    with torch.no_grad():
+        x = weights.net.stem_forward(planes).permute(0, 2, 3, 1).contiguous()
+        trunk = held(CF.fused_trunk_plain(x, weights.trunk), CF.fused_trunk(x, weights.trunk),
+                     CF.TRUNK_LIMITS)
+        trunk_ms = time_cuda(lambda: [CF.fused_trunk(x, weights.trunk) for _ in range(20)],
+                             reps=3) / 20
+    if not trunk["ok"]:
+        raise SystemExit(f"train: the trunk kernel disagrees on the trained pack: {trunk}")
+    # the pack is the trained module's weights, exactly
+    fresh = CF.pack_trunk_weights(mgr.net)
+    if not (all(torch.equal(a, b) for a, b in zip(fresh, weights.trunk))
+            and all(torch.equal(a, b) for a, b in zip(mgr.net.state_dict().values(),
+                                                       weights.net.state_dict().values()))):
+        raise SystemExit("train: the pack is not the trained module's weights")
+    # the fused forward: kernel trunk vs plain trunk under HEAD_LIMITS, and
+    # vs the module's own forward under the absolute rule of tests/test_ops.py
+    # (the module rounds the depthwise output to bf16 before its BatchNorm,
+    # where the fused forward folds BatchNorm into the f32 sum, as the Pallas
+    # kernel does: more elements differ than HEAD_LIMITS allow)
+    fused, fused_p = CF.fused_apply(weights, planes), CF.fused_apply(
+        weights, planes, trunk=CF.fused_trunk_plain)
+    module = mgr.net(planes)
+    shares = {}
+    for name in ("policy_logits", "value_logits", "q_logits", "moves_left_logits"):
+        head = held(getattr(fused_p, name), getattr(fused, name), CF.HEAD_LIMITS)
+        mod = held(getattr(module, name), getattr(fused, name), CF.HEAD_LIMITS)
+        if not head["ok"] or not mod["abs_ok"]:
+            raise SystemExit(f"train: the fused forward's {name} disagrees: with the plain "
+                             f"trunk {head}; with the trained module {mod}")
+        shares[name] = (round(head["share_differ"], 4), round(mod["share_differ"], 4),
+                        round(mod["max_abs_err"], 4))
+    if not mgr.net.training:
+        raise SystemExit("train: the training module left train mode")
+    stage["hand_over"] = time.perf_counter() - t0
+    print(f"train: trunk kernel on the trained pack at B={x.shape[0]}: {describe(trunk)}; "
+          f"{trunk_ms:.4f} ms a launch; the pack equals the trained weights; fused forward "
+          f"(share differing from the plain-trunk forward, from the module's forward, max abs "
+          f"err from the module's): {json.dumps(shares)}; the module still in train mode",
+          flush=True)
+
+    # gating, the launches counted around it alone
+    plies, on_empty = [0], []
+
+    def on_ply(env, moves):
+        plies[0] += 1
+        cell = env.board.flatten(1).gather(1, moves[:, None])[:, 0]
+        on_empty.append(((cell == 0) | (env.outcome != int(GameOutcome.UNKNOWN))).all())
+
+    SSM.score_scan.launches = SSM.score_backup.launches = CF.fused_trunk.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gate = mgr.gating(29, on_ply=on_ply)
+    torch.cuda.synchronize()
+    stage["gating"] = time.perf_counter() - t0
+    paths["train"] = {"score_scan": SSM.score_scan.launches,
+                      "score_backup": SSM.score_backup.launches,
+                      "fused_trunk": CF.fused_trunk.launches}
+    res = mgr.last_gating
+    sims = mgr.cfg.num_simulations
+    want = {"score_scan": 0, "score_backup": plies[0] * 2 * sims,
+            "fused_trunk": plies[0] * 2 * (sims + 1) + 1}
+    line = json.loads((wd / "gating.txt").read_text().splitlines()[-1])
+    ended = (res.outcomes != int(GameOutcome.UNKNOWN)).sum() + res.truncated
+    if (line["iteration"] != 29 or int(res.pentanomial.sum()) != TRAIN_GATING_GAMES // 2
+            or ended != TRAIN_GATING_GAMES or not bool(torch.stack(on_empty).all())
+            or paths["train"] != want):
+        raise SystemExit(f"train: gating {line}, {ended} games ended, launches "
+                         f"{paths['train']} (expected {want})")
+    print(f"train: gating(29) vs network_23: {TRAIN_GATING_GAMES} games at {sims} sims from "
+          f"balanced openings, {plies[0]} plies, {stage['gating']:.3f} s; {json.dumps(gate)}, "
+          f"pentanomial {res.pentanomial.tolist()}, lengths {res.game_lengths.tolist()}; every "
+          f"game ended, every live move on an empty cell; launches {paths['train']}", flush=True)
+    print("train: seconds by stage " + json.dumps({k: round(v, 3) for k, v in stage.items()}),
+          flush=True)
+    tmp.cleanup()
+    return dict(trained_pack=dict(ms=trunk_ms, share_differ=trunk["share_differ"],
+                                  max_abs_err=trunk["max_abs_err"], batch=x.shape[0]),
+                train_steps_per_s=steps_s, train_peak_bytes=peak)
+
+
+def _same_tree(a: dict, b: dict) -> bool:
+    import numpy as np
+
+    if isinstance(a, dict):
+        return sorted(a) == sorted(b) and all(_same_tree(a[k], b[k]) for k in a)
+    return np.array_equal(a, b)
 
 
 def main() -> int:
@@ -1057,14 +1363,20 @@ def main() -> int:
 
     # 17-18. self-play at the training manager's configuration, and to the
     # end of every game
-    next(k for k in kernels if k["name"] == "score_backup")["selfplay_tree"] = selfplay_phases(
-        weights, tables, paths)
+    selfplay_tree, generation = selfplay_phases(weights, tables, paths)
+    next(k for k in kernels if k["name"] == "score_backup")["selfplay_tree"] = selfplay_tree
+
+    # 19. the training loop: the manager resumed from the reference run on
+    # the generation of phase 18, a train iteration, the kernels on the
+    # trained weights, gating
+    trained = train_phase(paths, generation)
 
     trunk = dict(name="fused_trunk", route="cuda",
                  source="alphagomoku_tpu_torch/csrc/convnext_trunk.cu",
                  replaces="alphagomoku_tpu/ops/convnext_fused.py:92", **trunk64)
     trunk["widths"] = {"64": dict(trunk64, launches=paths["flagship"]["fused_trunk"]),
                        "128": dict(trunk128, launches=paths["8x128"]["fused_trunk"])}
+    trunk.update(trained)
     kernels.append(trunk)
     for k in kernels:
         k["launches"] = paths["flagship"][k["name"]]

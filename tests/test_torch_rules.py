@@ -111,15 +111,14 @@ def test_outcome_after_matches_jax(rules):
 
 def test_renju_unported_search_options_raise():
     """Under renju, the search options of ROADMAP.md item 10 still
-    unported (another policy, leaf_batch > 1, symmetry averaging) raise
-    NotImplementedError naming the item."""
+    unported (another policy, leaf_batch > 1) raise NotImplementedError
+    naming the item."""
     from alphagomoku_tpu_torch.search import mcts as TM
     from tests.test_torch_mcts import TORCH_CFG, boards_and_stm, torch_stub
 
     tables = TV.device_tables(GameRules.RENJU)
     boards, stm = boards_and_stm()
-    for cfg in (TORCH_CFG._replace(policy="ucb"), TORCH_CFG._replace(leaf_batch=2),
-                TORCH_CFG._replace(symmetry_averaging=True)):
+    for cfg in (TORCH_CFG._replace(policy="ucb"), TORCH_CFG._replace(leaf_batch=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
             TM.run_search(torch_stub, None, tables, cfg, boards, stm, 1, device="cpu")
 

@@ -7,11 +7,13 @@ from __future__ import annotations
 
 from alphagomoku_tpu.game.types import GameRules
 
+from tests import test_torch_augment as augment_tests
 from tests import test_torch_env as env_tests
 from tests import test_torch_mcts as mcts_tests
 from tests import test_torch_mcts_flagship as flagship_tests
 from tests import test_torch_loss_levels as loss_levels_tests
 from tests import test_torch_loss_prover as loss_prover_tests
+from tests import test_torch_match as match_tests
 from tests import test_torch_mcts_leafsolver as leafsolver_tests
 from tests import test_torch_mcts_solvers as solvers_tests
 from tests import test_torch_network as network_tests
@@ -21,6 +23,7 @@ from tests import test_torch_reuse as reuse_tests
 from tests import test_torch_selfplay as selfplay_tests
 from tests import test_torch_score_scan as score_scan_tests
 from tests import test_torch_threats as threat_tests
+from tests import test_torch_train as train_tests
 from tests import test_torch_vct as vct_tests
 from tests import test_torch_vcf as vcf_tests
 
@@ -59,4 +62,8 @@ CASES = {
         GameRules.FREESTYLE, **solvers_tests.DRAW_HORIZON),
     "stub_search_no_transpositions": lambda: mcts_tests.jax_stub_search(
         GameRules.FREESTYLE, **solvers_tests.NO_TRANSPOSITIONS),
+    "stub_search_symmetry": augment_tests.jax_symmetry_search,
+    "train_steps": train_tests.jax_train_steps,
+    "distill_step": train_tests.jax_distill_step,
+    "match_stub": match_tests.jax_match,
 }
