@@ -45,14 +45,21 @@
 //   accumulator layout is the m16n8k16 A layout, two n8 tiles per k16).
 //   Product 2's epilogue adds b2, rounds, adds the residual, rounds,
 //   writes the cell back in place and sums each column for the SE mean.
-// - At C = 128 the products' roundings are settled in the plain version's
-//   sum order (settle()): the few outputs whose bf16 rounding the tensor
-//   cores' sum leaves in doubt are summed again on CUDA cores, k
-//   ascending, reading the relu output, which for that only is also kept
-//   in the depthwise buffer's rows.  Without it the 8 blocks of the seeded
-//   8x128 trunk leave the plain version's result in 34% to 38% of the
-//   elements (TRUNK_LIMITS allow 25%).  At C = 64 the tensor cores' sums
-//   stay within the limits as they are.
+// - The products' roundings are settled in the plain version's sum order
+//   (settle()): the few outputs whose bf16 rounding the tensor cores' sum
+//   leaves in doubt are summed again on CUDA cores, k ascending, reading
+//   the relu output, which for that only is also kept in the depthwise
+//   buffer's rows.  Without it the 8 blocks of the seeded 8x128 trunk
+//   leave the plain version's result in 34% to 38% of the elements
+//   (TRUNK_LIMITS allow 25%).  At C = 64 the tensor cores' sums kept 1,280
+//   boards within the limits as a whole, but a board alone is another
+//   matter: on a board with few stones the cells share their values, so
+//   one rounding the tensor cores turn spreads over most of the board
+//   (65 of 256 network_23 bench boards alone over the limits, up to 88% of
+//   the elements), and the engine evaluates one board at a time.  So both
+//   widths settle; with it the kernel equals the plain version, whose
+//   products sum k ascending (`_products` in ops/convnext_fused.py), bit
+//   for bit on those boards, at 1.78x the time at C = 64 and B = 1280.
 // - Weights are fetched ahead: once the pointwise of layer l has passed
 //   its barrier, layer l+1's taps, w1, w2 and vectors are dead, so their
 //   `cp.async` copies are issued then and fly during layer l's SE gate and
@@ -97,8 +104,8 @@ struct Trunk {
   static constexpr int KT = C / 16;    // k16 steps of a product
   static constexpr int MT = 1;         // m16 tiles a warp takes at once
   // settle the products' roundings in the plain version's sum order (see
-  // settle()); at C = 64 the tensor cores' own sums stay within the limits
-  static constexpr bool kExact = C == 128;
+  // settle()); tools/trunk_settle.py builds copies with it off
+  static constexpr bool kExact = true;
   static constexpr int NC = 32;        // output columns per pass of a product
   static constexpr int SE_LOADS = C * C / 8 / kThreads;  // 16-byte loads per thread per dense
   static constexpr int kMinBlocks = C == 64 ? 2 : 1;     // CTAs per SM

@@ -29,10 +29,14 @@ from . import _build
 __all__ = [
     "TrunkWeights", "fold_bn", "pack_trunk_weights", "fused_trunk",
     "fused_trunk_plain", "FusedWeights", "pack_weights", "fused_apply",
-    "trunk_occupancy", "BLOCK_LIMITS", "TRUNK_LIMITS", "HEAD_LIMITS", "KERNEL_WIDTHS",
+    "trunk_occupancy", "trunk_smem_bytes", "BLOCK_LIMITS", "TRUNK_LIMITS", "HEAD_LIMITS",
+    "KERNEL_WIDTHS", "SM90_SMEM_OPTIN",
 ]
 
 KERNEL_WIDTHS = (64, 128)  # the filter counts csrc/convnext_trunk.cu is built for
+# the largest dynamic shared memory a block may opt into on sm_90, the only
+# architecture the kernel is built for (227 KiB)
+SM90_SMEM_OPTIN = 232448
 
 # How far the kernel may be from `fused_trunk_plain`, as limits of
 # `utils.bf16.agreement`.  Both round at the same points, so they differ
@@ -91,6 +95,17 @@ def pack_trunk_weights(net: AGNetwork) -> TrunkWeights:
     })
 
 
+def _products(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a [M, K] @ w [K, N] in f32, summed k ascending with one rounding per
+    term (the products of two bf16 values are exact in f32): the order the
+    kernel settles its doubtful sums in.  A library matmul may split the sum
+    otherwise, and on the card it does at some shapes (one board's rows)."""
+    acc = torch.zeros((a.shape[0], w.shape[1]), dtype=torch.float32, device=a.device)
+    for k in range(a.shape[1]):
+        acc = acc + a[:, k:k + 1] * w[k]
+    return acc
+
+
 def fused_trunk_plain(x: torch.Tensor, w: TrunkWeights) -> torch.Tensor:
     """Plain PyTorch version of the fused trunk: [B, H, W, C] bf16 -> same."""
     bsz, h, wd, c = x.shape
@@ -106,8 +121,8 @@ def fused_trunk_plain(x: torch.Tensor, w: TrunkWeights) -> torch.Tensor:
             for dj in range(k):
                 acc = acc + pad[:, di : di + h, dj : dj + wd] * taps[di, dj]
         ym = (acc * w.bn_s[l] + w.bn_t[l]).to(BF16).reshape(-1, c)
-        y1 = torch.relu(ym.float() @ w.w1[l].float() + w.b1[l]).to(BF16)
-        y2 = (y1.float() @ w.w2[l].float() + w.b2[l]).to(BF16)
+        y1 = torch.relu(_products(ym.float(), w.w1[l].float()) + w.b1[l]).to(BF16)
+        y2 = (_products(y1.float(), w.w2[l].float()) + w.b2[l]).to(BF16)
         x4 = (y2.float() + x.reshape(-1, c).float()).to(BF16).reshape(bsz, h, wd, c)
         z = x4.float().mean(dim=(1, 2)).to(BF16)
         h1 = torch.relu(z.float() @ w.sw1[l].float() + w.sb1[l]).to(BF16)
@@ -138,6 +153,13 @@ def fused_trunk(x: torch.Tensor, w: TrunkWeights) -> torch.Tensor:
             f"fused_trunk kernel takes C in {KERNEL_WIDTHS} filters, got {c} (ROADMAP.md, "
             "'TPU kernels to port': other trunk widths)"
         )
+    smem = trunk_smem_bytes(c, h, wd)
+    if smem > SM90_SMEM_OPTIN:
+        raise NotImplementedError(
+            f"fused_trunk kernel at C={c} on {h}x{wd} boards needs {smem} bytes of shared "
+            f"memory per block, the card allows {SM90_SMEM_OPTIN} (ROADMAP.md, item 8: the "
+            "trunk kernel at C = 128 on 20x20 boards)"
+        )
     if x.device.type != "cuda":
         raise ValueError(f"fused_trunk: unsupported device {x.device}")
     nl = w.dw.shape[0]
@@ -165,6 +187,15 @@ def fused_trunk(x: torch.Tensor, w: TrunkWeights) -> torch.Tensor:
 
 
 fused_trunk.launches = 0
+
+
+def trunk_smem_bytes(c: int, h: int, w: int) -> int:
+    """Dynamic shared memory of one CTA of the trunk kernel at width `c` on
+    h x w boards (`Trunk<C>::bytes` of csrc/convnext_trunk.cu): two
+    activation buffers and the two product weights in bf16 rows of C + 8,
+    the depthwise taps, and the f32 vectors of the BN, biases and SE."""
+    rs = c + 8
+    return (2 * h * w * rs + 2 * c * rs + 49 * c) * 2 + (4 * c + 2 * 8 * c + 3 * c + 2 * c) * 4
 
 
 def trunk_occupancy(c: int, h: int = 15, w: int = 15) -> dict:

@@ -18,7 +18,9 @@ table, which gives the same masks in a fraction of the time.
 dispatch as the reference package's, with plain indexing into the tables
 (the reference package's one-hot byte-split einsum reads are a TPU
 workaround).  Masks are 13-bit values carried in int32 (torch has no
-shifts on uint16).
+shifts on uint16).  The host half, `DefensiveTables.get_moves`,
+`_extended_window` and `defensive_cells_for_threat`, is the reference
+package's, for the exact host VCT (`search/vct.py`).
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import functools
 import numpy as np
 import torch
 
-from ..game.types import CROSS, CIRCLE, NONE, GameRules, invert_sign
+from ..game.types import CROSS, CIRCLE, NONE, DIRECTION_STEPS, GameRules, invert_sign
 from . import tables as T
 
 EXT_LENGTH = 13  # extended pattern (reference: RawPattern.hpp ExtendedPattern)
@@ -174,6 +176,74 @@ class DefensiveTables:
                     out[i, j, col] = lines[attacker].defend(ext, length + 4, offset, depth)
         return out
 
+    # -- lookup (reference: DefensiveMoveTable::getMoves dispatch) ---------
+
+    def get_moves(self, pattern: int, defender: int, threat: int) -> int:
+        """Defensive cells for the given 13-cell extended `pattern` (2 bits
+        per cell), defender sign, and PatternType `threat`, on the host.
+        Returns a 16-bit mask over the 13 pattern positions (the reference
+        package's `DefensiveTables.get_moves`)."""
+        attacker = invert_sign(defender)
+        col = 0 if defender == CROSS else 1
+
+        def sub(begin, length):
+            return (pattern >> (2 * begin)) & ((1 << (2 * length)) - 1)
+
+        def ctx(begin, end):
+            left = (pattern >> (2 * (begin - 2))) & 15
+            right = (pattern >> (2 * end)) & 15
+            return left | (right << 4)
+
+        if threat == T.PT_FIVE:
+            for i, begin in enumerate(_FIVE_OFFSETS):
+                if sub(begin, 5) == _FIVE_MASKS[attacker][i]:
+                    return int(self.five[i, ctx(begin, begin + 5), col])
+            return 0
+        if threat == T.PT_OPEN_4:
+            for i, begin in enumerate(_OPEN4_OFFSETS):
+                if sub(begin, 6) == _OPEN4_MASKS[attacker][i]:
+                    return int(self.open_four[i, ctx(begin, begin + 6), col])
+            return 0
+        if threat == T.PT_DOUBLE_4:
+            for i, begin in enumerate(_D4_OFFSETS):
+                length = _D4_LENGTHS[i]
+                if sub(begin, length) == _D4_MASKS[attacker][i]:
+                    return int(self.double_four[i, ctx(begin, begin + length), col])
+            return 0
+        if threat == T.PT_HALF_OPEN_4:
+            # derived from the five tables with positional shifts
+            # (reference: getMoves HALF_OPEN_4 branch incl. the caro
+            # multi-threat accumulation)
+            allow_ol = _overline_allowed(self.rules, attacker)
+            allow_bl = _blocked_allowed(self.rules, attacker)
+            result = 1 << CENTER
+            for i, begin in enumerate(_HO4_OFFSETS):
+                if sub(begin, 5) != _HO4_MASKS[attacker][i]:
+                    continue
+                first = (pattern >> (2 * (begin - 1))) & 3
+                last = (pattern >> (2 * (begin + 5))) & 3
+                if not allow_ol and (first == attacker or last == attacker):
+                    continue
+                if not allow_bl and (first == defender and last == defender):
+                    continue
+                tmp = int(self.five[i // 4, ctx(begin, begin + 5), col])
+                shift = begin - _FIVE_OFFSETS[i // 4]
+                tmp = (tmp << shift) if shift >= 0 else (tmp >> -shift)
+                result |= tmp & 0xFFFF
+                if self.rules not in (GameRules.CARO5, GameRules.CARO6):
+                    return result
+            return result
+        if threat == T.PT_OPEN_3:
+            for i, begin in enumerate(_OPEN3_OFFSETS):
+                if sub(begin, 6) == _OPEN3_MASKS[attacker][i]:
+                    result = int(self.open_four[i // 3, ctx(begin, begin + 6), col])
+                    shift = begin - _OPEN4_OFFSETS[i // 3]
+                    result = (result << shift) if shift >= 0 else (result >> -shift)
+                    result |= 1 << CENTER
+                    return result & 0xFFFF
+            return 0
+        return 0
+
 
 @functools.lru_cache(maxsize=None)
 def get_tables(rules: GameRules) -> DefensiveTables:
@@ -276,3 +346,53 @@ def get_moves_batched(
         if not open_rules:
             decided = decided | hit
     return acc.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Board-level lookup on the host (the defender option sets of the exact
+# VCT, search/vct.py)
+# ---------------------------------------------------------------------------
+
+
+def _extended_window(board: np.ndarray, row: int, col: int, d: int) -> int:
+    """13-cell extended pattern along direction `d` centered on (row, col),
+    encoded 2 bits/cell with off-board cells ILLEGAL (3)
+    (reference: RawPatternCalculator extended window extraction)."""
+    h, w = board.shape
+    dr, dc = DIRECTION_STEPS[d]
+    out = 0
+    for i in range(-CENTER, EXT_LENGTH - CENTER):
+        r, c = row + i * dr, col + i * dc
+        cell = 3 if not (0 <= r < h and 0 <= c < w) else int(board[r, c])
+        out |= cell << (2 * (i + CENTER))
+    return out
+
+
+def defensive_cells_for_threat(
+    board: np.ndarray,
+    row: int,
+    col: int,
+    defender: int,
+    threat: int,
+    rules: GameRules,
+) -> list[tuple[int, int]]:
+    """Board cells that defend against the attacker threat the cell
+    (row, col) represents (the attacker's potential move there), unioned
+    over the directions in which the threat exists.
+
+    This is the complete defender option set for VCT AND-nodes
+    (reference: MoveGenerator querying DefensiveMoveTable per opponent
+    threat cell)."""
+    tabs = get_tables(rules)
+    h, w = board.shape
+    out: set[tuple[int, int]] = set()
+    for d, (dr, dc) in enumerate(DIRECTION_STEPS):
+        pattern = _extended_window(board, row, col, d)
+        mask = tabs.get_moves(pattern, defender, threat)
+        for i in range(EXT_LENGTH):
+            if (mask >> i) & 1:
+                r = row + (i - CENTER) * dr
+                c = col + (i - CENTER) * dc
+                if 0 <= r < h and 0 <= c < w and board[r, c] == NONE:
+                    out.add((r, c))
+    return sorted(out)

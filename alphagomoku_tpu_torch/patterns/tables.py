@@ -6,10 +6,13 @@ A copy of the rule definitions of the reference package's
 `_classifier_rules`, `_PRIORITY`), the `PT_*` / `TT_*` codes, and the
 8^4-entry threat table (`_threat_of`, `_build_threat_table`), built in
 memory, and the open-three promotion data of the renju forbidden check
-(`_PROMO_*`).  The port classifies windows with bit math compiled from these
-rules (`patterns/bitwise.py`, which also builds the 4^10 pattern table from
-that bit math), so the reference package's numpy build of that table is
-not copied and nothing is cached on disk.
+(`_PROMO_*`), with the host helpers of the exact single-position code
+(`open_three_promotion_moves`, `narrow_down`, `expand`, `get_tables`).  The
+port classifies windows with bit math compiled from these rules
+(`patterns/bitwise.py`, which also builds the 4^10 pattern table from that
+bit math; `get_tables` hands it to the host code as numpy), so the
+reference package's numpy build of that table is not copied and nothing is
+cached on disk.
 
 Rule semantics replicate the reference's PatternClassifier
 (reference: src/patterns/PatternClassifier.cpp:16-75, :182-327).
@@ -297,3 +300,54 @@ _PROMO_PATTERNS = (320, 4352, 20480, 80, 16640, 69632, 272, 4160, 81920, 320, 43
 _PROMO_MASKS = (65520, 262080, 1048320, 16380, 262080, 1048320, 16380, 65520, 1048320,
                 16380, 65520, 262080)
 _PROMO_RESULTS = (196, 392, 784, 82, 328, 656, 74, 148, 592, 70, 140, 280)
+
+
+def open_three_promotion_moves(window: int) -> int:
+    """11-bit mask of candidate promotion spots for a cross open three
+    (host, one window).
+
+    `window` is the 22-bit NormalPattern with empty center (the stone is about
+    to be placed at the center).  Only meaningful when the window actually
+    contains a cross open three.
+    """
+    for pat, msk, res in zip(_PROMO_PATTERNS, _PROMO_MASKS, _PROMO_RESULTS):
+        if (window & msk) == pat:
+            return res
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# Key packing helpers (reference: patterns/PatternTable.hpp:135-145)
+# ---------------------------------------------------------------------------
+
+
+def narrow_down(window: np.ndarray | int):
+    """Remove the 2 center bits from a 22-bit window -> 20-bit key."""
+    return (window & 1023) | ((window & 4190208) >> 2)
+
+
+def expand(key: np.ndarray | int):
+    """Insert 2 zero bits at the center -> 22-bit window."""
+    return (key & 1023) | ((key & 1047552) << 2)
+
+
+# ---------------------------------------------------------------------------
+# Host tables for the exact single-position code (game/rules.py,
+# search/vct.py)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def get_tables(rules: GameRules) -> tuple[np.ndarray, np.ndarray]:
+    """(pattern_table uint8[4^10], threat_table uint8[8^4]) for a rule
+    variant, as numpy: the pattern table is `bitwise.pattern_table` run
+    once on the CPU (about a second), the threat table `_build_threat_table`.
+    Cached in memory, once per rule and process, never on disk."""
+    import torch
+
+    from . import bitwise  # bitwise imports this module
+
+    rules = GameRules(rules)
+    pattern = bitwise.pattern_table(rules, torch.device("cpu")).numpy().astype(np.uint8)
+    pattern.flags.writeable = False
+    return pattern, _build_threat_table(rules)

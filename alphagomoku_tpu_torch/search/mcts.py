@@ -705,6 +705,7 @@ def make_simulate_fn(
 # ---------------------------------------------------------------------------
 
 
+@torch.no_grad()
 def init_root(
     net_apply: Callable, variables: Any, tables: V.RuleTables, cfg: MCTSConfig,
     board, stm, raw_input: bool = True, device="cuda", noise: torch.Tensor | None = None,
@@ -712,7 +713,8 @@ def init_root(
     """Fresh trees with the root (node 0) expanded.  `board` [B, H, W] and
     `stm` [B] (arrays or tensors) are moved to `device`.  `noise` [B, K],
     drawn by `sample_root_noise`, perturbs the root priors when
-    `cfg.noise_weight > 0` (`apply_root_noise`)."""
+    `cfg.noise_weight > 0` (`apply_root_noise`).  Runs under no_grad
+    whatever the calling thread's grad mode."""
     check_config(cfg)
     dev = torch.device(device)
     board = torch.as_tensor(board).to(device=dev, dtype=torch.int8)

@@ -10,6 +10,7 @@ import json
 import time
 
 PHASES = ("mcts.select", "mcts.evaluate", "mcts.solve", "mcts.expand", "mcts.backup")
+_TRIES = 3  # traces of a kernel before too few traced launches is a fault
 
 
 def _traced(fn, reps: int):
@@ -42,15 +43,22 @@ def kernel_device_ms(fn, kernel: str, reps: int = 20) -> float:
     `reps` calls of `fn` (after one warm-up call).  Unlike CUDA events
     around a call, this leaves out the host's time to enqueue the launch.
     The profiler may miss a few launches of a kernel of a few microseconds
-    (4 of 20 once, after an 800-sim search): the mean is over those it
-    traced, and more than `reps` traced, or fewer than half, is a fault."""
+    (4 of 20 once, after an 800-sim search; all 20 once, late in a long
+    run): the mean is over those it traced, a trace with fewer than half
+    is taken again, up to `_TRIES` times, and more than `reps` traced, or
+    fewer than half in every try, is a fault."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    prof, _ = _traced(fn, reps)
-    hits = [e for e in _device_kernels(prof) if kernel in e.key]
-    traced = sum(e.count for e in hits)
+    for attempt in range(1, _TRIES + 1):
+        prof, _ = _traced(fn, reps)
+        hits = [e for e in _device_kernels(prof) if kernel in e.key]
+        traced = sum(e.count for e in hits)
+        if traced >= reps // 2:
+            break
+        print(f"profiler: try {attempt}: {traced} of {reps} launches of {kernel} traced",
+              flush=True)
     if not reps // 2 <= traced <= reps:
         raise SystemExit(f"profiler: {traced} launches of {kernel} traced in {len(hits)} "
                          f"entries, expected {reps}: {[(e.key, e.count) for e in hits]}")

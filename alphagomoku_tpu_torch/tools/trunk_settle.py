@@ -1,6 +1,6 @@
-"""Why the trunk kernel settles its products at C = 128, and what that
-costs: copies of the kernel that sum the products otherwise, each held
-against the plain version and timed on one GPU.
+"""Why the trunk kernel settles its products, and what that costs:
+copies of the kernel that sum the products otherwise, each held against
+the plain version and timed on one GPU, at both widths.
 
     python3 -m alphagomoku_tpu_torch.tools.trunk_settle
 
@@ -15,10 +15,15 @@ change, are built into `build/trunk_settle/` (never into the package):
             version's order reversed within each step (slow: it only
             shows what another order of the same f32 sums does).
 Each runs the seeded 8x128 trunk (`chip_smoke.WIDE_SEED`, C = 128, L = 8)
-on the stem's output of the bench boards (B = 1280), as `trunk_phases`
-does; each result is held against `fused_trunk_plain` under TRUNK_LIMITS
-(share of elements differing, share over 2 ulps).  A time is CUDA events
-around 20 launches, median of 3.  The settle variants are also built with
+and the network_23 trunk (C = 64, L = 6) on the stem's output of the
+bench boards (B = 1280), as `trunk_phases` does; each result is held
+against `fused_trunk_plain` under TRUNK_LIMITS (share of elements
+differing, share over 2 ulps), over the whole batch and, as the engine
+evaluates them, board by board (the first `PER_BOARD` boards each alone:
+how many are over the limits, and the largest share differing).  A time
+is CUDA events around 20 launches, median of 3, at B = 1280 and at B = 1.
+First, how often `torch.matmul` in f32 leaves the plain version's
+k-ascending sum, on each trunk's first w1 at 225, 400 and all rows.  The settle variants are also built with
 a counter of the outputs they sum again (`settled`, over all 2*B*H*W*C*L
 product outputs of one launch); the times come from the builds without
 it.  The last line printed is one JSON object with every reading.
@@ -37,7 +42,7 @@ from .trunk_phases import ROOT, time_variant, trunk_inputs
 OUT_DIR = ROOT / "build" / "trunk_settle"
 SOURCE = ROOT / "alphagomoku_tpu_torch" / "csrc" / "convnext_trunk.cu"
 K_ERR = "constexpr float kErr = 5.9604645e-8f;"
-EXACT = "static constexpr bool kExact = C == 128;"
+EXACT = "static constexpr bool kExact = true;"
 MMA_DOC = "// d += a (16x16, row) * b (16x8, col)"
 
 _REVERSED_MMA = r"""__device__ __forceinline__ float bf16_half(uint32_t r, int hi) {
@@ -80,7 +85,7 @@ def variants(src: str) -> dict[str, str]:
     return {
         "as_is": src,
         "tc_only": no_settle,
-        # (K + K/16 + 40) u at K = C = 128, the width that settles
+        # (K + K/16 + 40) u at K = C = 128 (an upper bound at C = 64 too)
         "provable": _replace(src, K_ERR, "constexpr float kErr = 176 * 5.9604645e-8f * 1.01f;"),
         "half_u": _replace(src, K_ERR, "constexpr float kErr = 0.5f * 5.9604645e-8f;"),
         "reversed": no_settle[:mma] + _REVERSED_MMA + no_settle[after:],
@@ -137,6 +142,9 @@ def run_once(so: Path, x, tw):
     return out
 
 
+PER_BOARD = 256
+
+
 def main() -> int:
     import torch
 
@@ -151,24 +159,45 @@ def main() -> int:
     plain = variants(SOURCE.read_text())
     settling = ("as_is", "provable", "half_u")
     libs = build({**plain, **{f"{n}_counted": counted(plain[n]) for n in settling}})
-    _, x, tw = next(t for t in trunk_inputs() if t[0] == "C128")
-    ref = CF.fused_trunk_plain(x, tw)
-    outputs = 2 * x.numel() * tw.dw.shape[0]
     report = {}
-    for name in plain:
-        held = agreement(ref, run_once(libs[name], x, tw), **CF.TRUNK_LIMITS)
-        row = {"share_differ": held["share_differ"], "share_over_2ulps": held["share_over"],
-               "within_trunk_limits": held["ok"],
-               "ms": time_variant(libs[name], x, tw) if name != "reversed" else None}
-        if name in settling:
-            lib = ctypes.CDLL(str(libs[f"{name}_counted"]))
-            lib.ag_take_settled.restype = ctypes.c_ulonglong
-            lib.ag_take_settled()
-            run_once(libs[f"{name}_counted"], x, tw)
-            torch.cuda.synchronize()
-            row["settled"] = lib.ag_take_settled() / outputs
-        report[name] = row
-        print(f"{name}: " + json.dumps(row), flush=True)
+    # the plain version's products sum k ascending (`_products`); how often
+    # the library's f32 matmul leaves that order, at one board's rows (15x15,
+    # 20x20) and at the batch's, on this checkpoint's and seed's weights
+    for tag, x, tw in trunk_inputs():
+        c = x.shape[-1]
+        a = x.reshape(-1, c).float()
+        for rows in (225, 400, a.shape[0]):
+            ar = a[:rows] if rows <= a.shape[0] else a
+            share = float(((ar @ tw.w1[0].float()) != CF._products(ar, tw.w1[0].float()))
+                          .float().mean())
+            report[f"{tag}.matmul_rows_{rows}"] = share
+            print(f"{tag}: torch.matmul leaves the k-ascending sum in {share:.4f} of the f32 "
+                  f"outputs at {rows} rows", flush=True)
+    for tag, x, tw in trunk_inputs():
+        ref = CF.fused_trunk_plain(x, tw)
+        outputs = 2 * x.numel() * tw.dw.shape[0]
+        x1 = x[:1].contiguous()
+        for name in plain:
+            out = run_once(libs[name], x, tw)
+            held = agreement(ref, out, **CF.TRUNK_LIMITS)
+            boards = [agreement(ref[i:i + 1], out[i:i + 1], **CF.TRUNK_LIMITS)
+                      for i in range(PER_BOARD)]
+            fast = name != "reversed"
+            row = {"share_differ": held["share_differ"], "share_over_2ulps": held["share_over"],
+                   "within_trunk_limits": held["ok"],
+                   "boards_over_limits": sum(not b["ok"] for b in boards),
+                   "max_board_share_differ": max(b["share_differ"] for b in boards),
+                   "ms": time_variant(libs[name], x, tw) if fast else None,
+                   "ms_b1": time_variant(libs[name], x1, tw) if fast else None}
+            if name in settling:
+                lib = ctypes.CDLL(str(libs[f"{name}_counted"]))
+                lib.ag_take_settled.restype = ctypes.c_ulonglong
+                lib.ag_take_settled()
+                run_once(libs[f"{name}_counted"], x, tw)
+                torch.cuda.synchronize()
+                row["settled"] = lib.ag_take_settled() / outputs
+            report[f"{tag}.{name}"] = row
+            print(f"{tag} {name}: " + json.dumps(row), flush=True)
     print(json.dumps(report), flush=True)
     return 0
 

@@ -107,6 +107,29 @@ Phases, one line each (any failure exits non-zero):
      step, the trunk once more per search and once for the openings):
      gating.txt's line, the pentanomial over the pairs, every game ended,
      every live move on an empty cell; the seconds of each stage;
+ 20. engine (run after phase 7, before phase 8's trace) - the playing
+     engine (`engine/manager.py`) at the launcher's
+     defaults (extended protocol, network_23, 400 sims: N = 1,208, K = 32,
+     D = 40, the host VCT and the VCT leaf solver, B = 1), each search cut
+     by `INFO max_node` to `ENGINE_MAX_NODE` sims: BEGIN, two TURNs along
+     the searched tree (which reuse it), an open four (the root VCF: WIN
+     in 1), a four chain (WIN in 5), the opponent's four to block,
+     TAKEBACK, renju with SHOWFORBID and a search for black; gates: every
+     answer on an empty cell and, for black under renju, not on a
+     forbidden one (`game.rules.is_forbidden`), the win, the chain and
+     the block answered right, the tree reused, per search score_backup
+     launched once a step and the trunk once a step plus once for a fresh
+     root, finite values; ms per simulation step, launches per step,
+     seconds per move.  network_23 on a 20x20 board must be refused (its
+     moves-left head has 225 buckets).  Then score_backup at D = 40 on
+     the engine's tree (its most-visited path, and a full 40-level path:
+     both chunks of `score_backup_kernel<32>`), and the trunk at B = 1 on
+     15x15 and on 20x20 (the 20x20 engine with seeded 6x64 weights, one
+     search), each against its plain version; the trunk at C = 128 on
+     20x20 must raise (its shared memory exceeds the card's); one
+     realtime search over the YixinBoard protocol; the benchmark sweep
+     and config (`engine/benchmark.py`, written under
+     build/chip_smoke/engine_benchmark/);
 then a `kernels` JSON line and, last, {"ok": true, "device": {...}}.
 
 A kernel's `ms` is its device time per launch: for score_scan and
@@ -138,13 +161,15 @@ SIMS = 800  # flagship search
 # the 8x128 search runs 200 sims: with every search at 800 the whole run
 # passed 15 minutes, and the 8x128 path is the first to cut
 WIDE_SIMS = 200  # 8x128 search
-# the strength, loss-prover and renju searches run 200 sims (800 before the
-# self-play phases came in): with self-play at 8 moves the whole run took
-# 1005 s at 400 and 843 s at 200 on an H100 80GB HBM3 (700 W) whose host
-# ran the self-play step at half the speed of another run's
-STRENGTH_SIMS = 200  # strength (VCT leaf solver) search
-LOSS_SIMS = 200  # strength search with the loss prover
-RENJU_SIMS = 200  # renju search with the VCF leaf solver
+# the strength, loss-prover and renju searches run 100 sims (800 before the
+# self-play phases came in, 200 before the engine phase came in): with
+# self-play at 8 moves the whole run took 1005 s at 400 and 843 s at 200 on
+# an H100 80GB HBM3 (700 W) whose host ran the self-play step at half the
+# speed of another run's; at 200 with the training phase, 839 s on a slow
+# host, and the engine phase adds about 100 s
+STRENGTH_SIMS = 100  # strength (VCT leaf solver) search
+LOSS_SIMS = 100  # strength search with the loss prover
+RENJU_SIMS = 100  # renju search with the VCF leaf solver
 CLUSTER_SIMS = 64  # renju search on the clustered boards, black to move
 LOSS2_CPU_BOARDS = 32  # boards of the level-2 loss proof checked on the CPU
 # self-play at the training manager's configuration (256 games, 100 sims,
@@ -424,13 +449,13 @@ def trunk_phase(net, planes, tag: str) -> dict:
         trunk_plain_ms = time_cuda(lambda: CF.fused_trunk_plain(x, tw), reps=5)
         lib_out = library_trunk(x, tw)
         trunk_lib_ms = time_cuda(lambda: library_trunk(x, tw))
-    L, C = tw.dw.shape[0], x.shape[-1]
-    occ = CF.trunk_occupancy(C, H, W)
-    print(f"{tag} occupancy: C={C}: {occ['registers']} registers per thread, "
+    L, (B, h, w, C) = tw.dw.shape[0], x.shape
+    occ = CF.trunk_occupancy(C, h, w)
+    print(f"{tag} occupancy: C={C} {h}x{w}: {occ['registers']} registers per thread, "
           f"{occ['ctas_per_sm']} CTAs per SM, {occ['smem_bytes']} bytes of shared memory per "
           f"CTA, {occ['local_bytes']} bytes of local memory (spills) per thread", flush=True)
-    dw_flops = 2.0 * 49 * H * W * C * BATCH * L
-    mm_flops = (2.0 * 2 * H * W * C * C + 2.0 * 2 * C * C) * BATCH * L
+    dw_flops = 2.0 * 49 * h * w * C * B * L
+    mm_flops = (2.0 * 2 * h * w * C * C + 2.0 * 2 * C * C) * B * L
     trunk_bytes = 2 * x.numel() * x.element_size() + sum(
         t.numel() * t.element_size() for t in tw
     )
@@ -438,8 +463,8 @@ def trunk_phase(net, planes, tag: str) -> dict:
     bytes_ms = trunk_bytes / HBM_BPS * 1e3
     trunk_bound_ms = max(ops_ms, bytes_ms)
     lib = held(out_p, lib_out, CF.TRUNK_LIMITS)
-    print(f"{tag}: C={C} L={L} B={BATCH}; library trunk {describe(lib)}; kernel {trunk_ms:.4f} ms "
-          f"on the device ({trunk_call_ms:.4f} ms a call), "
+    print(f"{tag}: C={C} L={L} B={B} {h}x{w}; library trunk {describe(lib)}; kernel "
+          f"{trunk_ms:.4f} ms on the device ({trunk_call_ms:.4f} ms a call), "
           f"plain {trunk_plain_ms:.4f} ms, library {trunk_lib_ms:.4f} ms, bound "
           f"{trunk_bound_ms:.4f} ms (ops {ops_ms:.4f}: {dw_flops / 1e9:.2f} GFLOP depthwise "
           f"f32 + {mm_flops / 1e9:.2f} GFLOP products bf16; bytes {bytes_ms:.4f})", flush=True)
@@ -1165,6 +1190,284 @@ def train_phase(paths: dict, generation: dict) -> dict:
                 train_steps_per_s=steps_s, train_peak_bytes=peak)
 
 
+# phase 20: the playing engine at its launcher's configuration (400 sims:
+# a 1,208-node tree, K = 32, D = 40), each search cut to ENGINE_MAX_NODE
+# simulations by the protocol's own node limit
+ENGINE_MAX_NODE = 50
+BENCH_DIR = ROOT / "build" / "chip_smoke" / "engine_benchmark"
+
+
+class _EngineLog:
+    """Records every search the port's Engine runs while installed: the
+    position, the summary, the stage seconds and the kernels' launches
+    during that search."""
+
+    def __init__(self):
+        from alphagomoku_tpu_torch.engine import engine as E
+
+        self.E = E
+        self.searches: list[dict] = []
+
+    def __enter__(self):
+        import torch
+        from alphagomoku_tpu_torch.ops import convnext_fused as CF
+        from alphagomoku_tpu_torch.ops import score_scan as SSM
+
+        orig = self.orig = self.E.Engine.search
+        log = self.searches
+
+        def search(eng, *a, **k):
+            board, stm, reuse0 = eng.board_array(), eng.sign_to_move(), eng.reuse_count
+            n0 = (SSM.score_backup.launches, CF.fused_trunk.launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s = orig(eng, *a, **k)
+            torch.cuda.synchronize()
+            log.append(dict(board=board, stm=stm, rules=eng.rules, summary=s,
+                            seconds=time.perf_counter() - t0, timings=dict(eng.last_timings),
+                            reused=eng.reuse_count > reuse0,
+                            score_backup=SSM.score_backup.launches - n0[0],
+                            fused_trunk=CF.fused_trunk.launches - n0[1]))
+            return s
+
+        self.E.Engine.search = search
+        return self
+
+    def __exit__(self, *exc):
+        self.E.Engine.search = self.orig
+
+
+def _drive(mgr, *lines) -> list[str]:
+    """Feed protocol lines to a ProgramManager and pump until they are
+    read; returns the lines it wrote."""
+    out: list[str] = []
+    orig = mgr.sender._sink
+    mgr.sender._sink = out.append
+    try:
+        for line in lines:
+            mgr.listener.push_line(line)
+        while not mgr.listener.is_empty():
+            mgr.run_once()
+    finally:
+        mgr.sender._sink = orig
+    return out
+
+
+def _answers(out: list[str]) -> list[str]:
+    import re
+
+    return [x for x in out if re.fullmatch(r"\d+,\d+( \d+,\d+)*", x)]
+
+
+def _reply_along_tree(eng, answer) -> str:
+    """TURN with the most visited reply to the engine's `answer` (a Move)
+    in its last search's tree (so that the next search can reuse it)."""
+    st = eng._last_state
+    root = int(st.root_node[0])
+    ea, ec = st.tree.edge_action[0].cpu().numpy(), st.tree.edge_child[0].cpu().numpy()
+    nv = st.tree.node_visits[0].cpu().numpy()
+    move = answer.row * eng.cols + answer.col
+    child = int(ec[root, list(ea[root]).index(move)])
+    visits = [nv[c] if c >= 0 else -1 for c in ec[child]]
+    a = int(ea[child, max(range(len(visits)), key=visits.__getitem__)])
+    return f"TURN {a // eng.cols},{a % eng.cols}"
+
+
+def root_planes(tables, board, stm):
+    """The network's raw input planes of boards [B, H, W] and sides to move."""
+    from alphagomoku_tpu_torch.patterns import features as FEAT
+
+    return FEAT.unpack_raw_planes(FEAT.encode(tables, board, stm))
+
+
+def engine_phase() -> dict:
+    """Phase 20: the port's ProgramManager (extended protocol, network_23,
+    the launcher's defaults) through a game transcript, gated move by
+    move; then the kernels at the engine's shapes against their plain
+    versions; the 20x20 engine with seeded weights; one realtime search
+    over the YixinBoard protocol; the benchmark sweep.  Returns the
+    launch counts of the transcript and the kernels' entries."""
+    import io
+
+    import numpy as np
+    import torch
+    from alphagomoku_tpu_torch.engine.benchmark import create_config, run_benchmark
+    from alphagomoku_tpu_torch.engine.manager import ProgramManager
+    from alphagomoku_tpu_torch.game import rules as R
+    from alphagomoku_tpu_torch.game import vectorized as V
+    from alphagomoku_tpu_torch.game.types import CROSS, GameRules
+    from alphagomoku_tpu_torch.models.networks import create_network, init_random_
+    from alphagomoku_tpu_torch.ops import convnext_fused as CF
+    from alphagomoku_tpu_torch.ops import score_scan as SSM
+    from alphagomoku_tpu_torch.search import mcts
+
+    t_phase = time.perf_counter()
+    mgr = ProgramManager(protocol="extended", checkpoint=str(CKPT), device="cuda",
+                         instream=None, outstream=io.StringIO())
+    opening = ["START 15", f"INFO max_node {ENGINE_MAX_NODE}"]
+    own4 = [(7, 4), (7, 5), (7, 6), (7, 7)]
+    SSM.score_scan.launches = 0
+    SSM.score_backup.launches = 0
+    CF.fused_trunk.launches = 0
+    with _EngineLog() as log:
+        out = _drive(mgr, *opening, "BEGIN")
+        eng15 = mgr.engine
+        for _ in range(2):
+            out += _drive(mgr, _reply_along_tree(eng15, log.searches[-1]["summary"].best_move))
+        reuse_tree = eng15._last_state
+        # an open four (the root VCF: WIN in 1), a four chain (WIN in 5) and
+        # the opponent's half-open four to block, which the search answers
+        win = _drive(mgr, "START 15", "BOARD", *[f"{r},{c},1" for r, c in own4],
+                     "9,3,2", "9,4,2", "9,5,2", "0,0,2", "DONE")
+        chain = _drive(mgr, "START 15", "BOARD", "7,5,1", "7,6,1", "7,7,1", "9,9,1", "10,10,1",
+                       "7,4,2", "0,0,2", "0,2,2", "14,14,2", "14,12,2", "DONE")
+        block = _drive(mgr, "START 15", "BOARD", "7,2,1", "2,2,1", "3,3,1", "4,4,1", "7,3,2",
+                       "7,4,2", "7,5,2", "7,6,2", "DONE")
+        takeback = _drive(mgr, "TAKEBACK 7,7")
+        # renju: black's 3x3 fork at 7,7, then a search for black
+        renju = _drive(mgr, "RESTART", "INFO rule 4", "PLAY 7,5", "PLAY 0,0", "PLAY 7,6",
+                       "PLAY 0,14", "PLAY 5,7", "PLAY 14,0", "PLAY 6,7", "SHOWFORBID",
+                       "TURN 14,14", "SHOWFORBID")
+        out += win + chain + block + takeback + renju
+        launches = {"score_scan": SSM.score_scan.launches,
+                    "score_backup": SSM.score_backup.launches,
+                    "fused_trunk": CF.fused_trunk.launches}
+    searches = log.searches
+    # a 15x15 checkpoint has no 20x20 moves-left head: the engine refuses it
+    try:
+        _drive(mgr, "START 20", "BEGIN")
+        raise SystemExit("engine: network_23 was accepted for a 20x20 board")
+    except ValueError as e:
+        refused20 = str(e)
+
+    # -- gates ------------------------------------------------------------
+    for i, s in enumerate(searches):
+        mv, board = s["summary"].best_move, s["board"]
+        if board[mv.row, mv.col] != 0:
+            raise SystemExit(f"engine: search {i} answered the occupied cell {mv}")
+        if s["rules"] == GameRules.RENJU and mv.sign == CROSS and R.is_forbidden(board, mv):
+            raise SystemExit(f"engine: search {i} answered the forbidden cell {mv}")
+        steps = s["timings"].get("steps", 0)
+        want = (steps, steps + (steps > 0 and not s["reused"]))
+        if (s["score_backup"], s["fused_trunk"]) != want:
+            raise SystemExit(f"engine: search {i} launched score_backup {s['score_backup']} "
+                             f"and the trunk {s['fused_trunk']} times in {steps} steps, "
+                             f"expected {want}")
+        if not np.isfinite([s["summary"].expectation, s["summary"].win_rate]).all():
+            raise SystemExit(f"engine: search {i} has a non-finite value: {s['summary']}")
+    if _answers(win) not in (["7,3"], ["7,8"]) or not searches[3]["summary"].proven.startswith(
+            "WIN in "):
+        raise SystemExit(f"engine: the open four was not won: {win}")
+    if not searches[4]["summary"].proven.startswith("WIN in ") or _answers(chain) != ["7,8"]:
+        raise SystemExit(f"engine: the VCF position was not proven: {chain}")
+    if _answers(block) != ["7,7"]:
+        raise SystemExit(f"engine: the four was not blocked: {block}")
+    if takeback != ["OK"]:
+        raise SystemExit(f"engine: TAKEBACK answered {takeback}")
+    forbid = [x for x in renju if x.startswith("FORBID")]
+    if len(forbid) != 2 or "7,7" not in forbid[0].split():
+        raise SystemExit(f"engine: SHOWFORBID did not list the 3x3 fork 7,7: {renju}")
+    if eng15.reuse_count < 1 or not searches[1]["reused"]:
+        raise SystemExit(f"engine: the TURNs did not reuse the tree ({eng15.reuse_count})")
+    if min(launches["score_backup"], launches["fused_trunk"]) < 1 or launches["score_scan"]:
+        raise SystemExit(f"engine: the kernels were not launched on its path: {launches}")
+    ran = [s for s in searches if s["timings"].get("steps", 0) > 0]
+    steps = sum(s["timings"]["steps"] for s in ran)
+    sim_s = sum(s["timings"]["simulate"] for s in ran)
+    step_ms = 1e3 * sim_s / steps
+    print(f"engine: {len(searches)} searches ({len(ran)} through the tree, "
+          f"{ENGINE_MAX_NODE} sims each) at B=1, N={reuse_tree.tree.capacity}, K=32, D=40: "
+          f"{step_ms:.2f} ms per simulation step, "
+          f"{(launches['score_backup'] + launches['fused_trunk']) / steps:.4f} of the kernels "
+          f"per step (launches {launches}); reuse count {eng15.reuse_count}; seconds per move "
+          + ", ".join(f"{s['seconds']:.2f}" for s in searches)
+          + "; stages of the first search " + ", ".join(
+              f"{k} {v:.3f}" for k, v in searches[0]["timings"].items()), flush=True)
+    print("engine answers: " + " | ".join(
+        f"{s['summary'].best_move.row},{s['summary'].best_move.col} "
+        f"{s['summary'].proven or 'ev %.3f' % s['summary'].expectation}" for s in searches)
+        + f"; FORBID lines {forbid}; 20x20 with network_23 refused: {refused20}", flush=True)
+
+    # -- kernels at the engine's shapes -----------------------------------
+    tables = V.device_tables(GameRules.FREESTYLE)
+    tree = reuse_tree.tree
+    pn, ps, leaf = most_visited_paths(tree, 40)
+    engine_backup = backup_phase(dict(
+        edge_score=tree.edge_score, edge_action=tree.edge_action,
+        node_complete=tree.node_complete, node_score=tree.node_score, pn=pn, ps=ps,
+        start_score=leaf), "score_backup on the engine tree (D=40)")
+    # a full 40-level path over the engine tree's rows: both chunks of
+    # score_backup_kernel<32> (levels 32..39, then 0..31)
+    rng = np.random.default_rng(5)
+    count = int(tree.node_count[0])
+    nodes = torch.from_numpy(rng.permutation(count)[:40][None].copy()).to(pn.device)
+    deep = backup_phase(dict(
+        edge_score=tree.edge_score, edge_action=tree.edge_action,
+        node_complete=tree.node_complete, node_score=tree.node_score, pn=nodes,
+        ps=torch.from_numpy(rng.integers(0, 32, size=(1, 40))).to(pn.device),
+        start_score=leaf), "score_backup on the engine tree, a full 40-level path")
+    # the engine's next steps traced: every launch of a B = 1 step
+    simulate = mcts.make_simulate_fn(CF.fused_apply, eng15.tables, eng15._mcfg)
+    print(profile_steps(simulate, eng15.variables, reuse_tree, PROFILE_STEPS).replace(
+        "profile:", "profile engine:"), flush=True)
+    board15 = torch.from_numpy(searches[1]["board"][None]).to("cuda")
+    stm15 = torch.full((1,), searches[1]["stm"], dtype=torch.int8, device="cuda")
+    trunk15 = trunk_phase(eng15.net, root_planes(tables, board15, stm15), "fused_trunk B=1 15x15")
+
+    # -- the 20x20 engine (seeded weights) and the trunk there -------------
+    mgr20 = ProgramManager(protocol="extended", device="cuda", instream=None,
+                           outstream=io.StringIO())
+    with _EngineLog() as log20:
+        n0 = (SSM.score_backup.launches, CF.fused_trunk.launches)
+        out20 = _drive(mgr20, "START 20", f"INFO max_node {ENGINE_MAX_NODE}", "BEGIN")
+        launches20 = (SSM.score_backup.launches - n0[0], CF.fused_trunk.launches - n0[1])
+    s20 = log20.searches[0]
+    if len(_answers(out20)) != 1 or launches20 != (s20["timings"]["steps"],
+                                                    s20["timings"]["steps"] + 1):
+        raise SystemExit(f"engine 20x20: {out20} {launches20}")
+    print(f"engine 20x20 (seeded 6x64): answer {_answers(out20)[0]} in {s20['seconds']:.2f} s, "
+          f"{1e3 * s20['timings']['simulate'] / s20['timings']['steps']:.2f} ms per step, "
+          f"launches score_backup {launches20[0]}, trunk {launches20[1]}", flush=True)
+    board20 = torch.zeros((1, 20, 20), dtype=torch.int8, device="cuda")
+    stm20 = torch.full((1,), CROSS, dtype=torch.int8, device="cuda")
+    trunk20 = trunk_phase(mgr20.engine.net, root_planes(tables, board20, stm20),
+                          "fused_trunk B=1 20x20")
+    wide = init_random_(create_network("ConvNextPVQMraw", blocks=8, filters=128, rows=20,
+                                       cols=20), torch.Generator().manual_seed(WIDE_SEED))
+    wide_tw = CF.pack_trunk_weights(wide.to("cuda"))
+    try:
+        CF.fused_trunk(torch.zeros((1, 20, 20, 128), dtype=torch.bfloat16, device="cuda"),
+                       wide_tw)
+        raise SystemExit("fused_trunk at C = 128 on 20x20 launched")
+    except NotImplementedError as e:
+        print(f"fused_trunk C=128 20x20: raises NotImplementedError ({e})", flush=True)
+
+    # -- one realtime search over the YixinBoard protocol ------------------
+    yx = ProgramManager(protocol="yixin", checkpoint=str(CKPT), device="cuda", instream=None,
+                        outstream=io.StringIO())
+    yx_out = _drive(yx, "START 15", f"INFO max_node {ENGINE_MAX_NODE}", "info show_detail 1",
+                    "BEGIN")
+    if not any(x.startswith("MESSAGE REALTIME BEST") for x in yx_out) or len(
+            _answers(yx_out)) != 1:
+        raise SystemExit(f"engine yixin: no realtime stream or no answer: {yx_out}")
+    print(f"engine yixin: {sum(x.startswith('MESSAGE REALTIME') for x in yx_out)} realtime "
+          f"lines, answer {_answers(yx_out)[0]}", flush=True)
+
+    # -- the benchmark sweep and config derivation (engine/benchmark.py) ---
+    BENCH_DIR.mkdir(parents=True, exist_ok=True)
+    report = run_benchmark(seconds_per_point=0.2, output_path=str(BENCH_DIR / "benchmark.json"))
+    config = create_config(str(BENCH_DIR / "benchmark.json"), str(BENCH_DIR / "config.json"))
+    print("engine benchmark (seeded 6x64, fused forward): " + ", ".join(
+        f"B={r['batch_size']} {r['samples_per_second']:.0f}/s" for r in report["results"])
+        + f"; config batch {config['search_batch_size']}", flush=True)
+    print(f"engine phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(launches=launches, step_ms=step_ms, steps=steps,
+                seconds_per_move=[s["seconds"] for s in searches],
+                score_backup=dict(engine_tree=engine_backup, engine_full_path=deep),
+                fused_trunk={"15x15": dict(trunk15, launches=launches["fused_trunk"]),
+                             "20x20": dict(trunk20, launches=launches20[1])})
+
+
 def _same_tree(a: dict, b: dict) -> bool:
     import numpy as np
 
@@ -1189,7 +1492,6 @@ def main() -> int:
     from alphagomoku_tpu_torch.ops import _build
     from alphagomoku_tpu_torch.ops import convnext_fused as CF
     from alphagomoku_tpu_torch.ops import score_scan as SSM
-    from alphagomoku_tpu_torch.patterns import features as FEAT
     from alphagomoku_tpu_torch.search import mcts
     from alphagomoku_tpu_torch.search import vct_batched
     from alphagomoku_tpu_torch.utils import checkpoint
@@ -1269,7 +1571,7 @@ def main() -> int:
     tables = V.device_tables(GameRules.FREESTYLE)
     boards = torch.from_numpy(bench_boards(BATCH)).to(dev)
     stm = torch.full((BATCH,), CROSS, dtype=torch.int8, device=dev)
-    planes = FEAT.unpack_raw_planes(FEAT.encode(tables, boards, stm))
+    planes = root_planes(tables, boards, stm)
     trunk64 = trunk_phase(net, planes, "fused_trunk")
 
     # 6. network: fused forward, kernel trunk vs plain trunk
@@ -1296,6 +1598,14 @@ def main() -> int:
         **occupancy[f"D={D}"]["score_backup"],
     ))
     del tree, pn, ps, leaf_score, start
+
+    # 20. the playing engine through the port's ProgramManager, before the
+    # first trace of search steps: after such traces torch.profiler catches
+    # no lone launch of a few microseconds, and phase 20 times score_backup
+    # on the engine's tree by lone launches
+    engine = engine_phase()
+    paths["engine"] = engine["launches"]
+    kernels[-1].update(engine["score_backup"])
 
     # 8. profile: the next steps of the same search, traced
     simulate = mcts.make_simulate_fn(CF.fused_apply, tables, cfg)
@@ -1377,6 +1687,7 @@ def main() -> int:
     trunk["widths"] = {"64": dict(trunk64, launches=paths["flagship"]["fused_trunk"]),
                        "128": dict(trunk128, launches=paths["8x128"]["fused_trunk"])}
     trunk.update(trained)
+    trunk["engine_b1"] = engine["fused_trunk"]
     kernels.append(trunk)
     for k in kernels:
         k["launches"] = paths["flagship"][k["name"]]

@@ -8,7 +8,9 @@ from __future__ import annotations
 from alphagomoku_tpu.game.types import GameRules
 
 from tests import test_torch_augment as augment_tests
+from tests import test_torch_engine as engine_tests
 from tests import test_torch_env as env_tests
+from tests import test_torch_host_rules as host_rules_tests
 from tests import test_torch_mcts as mcts_tests
 from tests import test_torch_mcts_flagship as flagship_tests
 from tests import test_torch_loss_levels as loss_levels_tests
@@ -66,4 +68,8 @@ CASES = {
     "train_steps": train_tests.jax_train_steps,
     "distill_step": train_tests.jax_distill_step,
     "match_stub": match_tests.jax_match,
+    **{f"engine_{name}": (lambda name=name: engine_tests.jax_engine_case(name))
+       for name in engine_tests.CASES},
+    "engine_flagship": engine_tests.jax_engine_flagship,
+    "host_vct": host_rules_tests.jax_host_vct,
 }
