@@ -57,9 +57,15 @@
 // what the card gives each instantiation (spills must be 0).
 //
 // One warp per row, kWarps rows per block.  K <= 32 (lanes >= K are
-// inactive); the wrappers reject larger K.  Scores are packed uint16 values
-// carried zero-extended in int32, exactly as the port's tree stores them;
-// masks are bytes (torch.bool).
+// inactive) takes the staged kernels above.  K > 32 takes the wide kernels
+// (`score_scan_wide_kernel`, `score_backup_wide_kernel`): lane l holds the
+// slots l, l + 32, l + 64, ... of a level and reduces them itself (the max
+// over active slots, "all proven or inactive"), a warp reduction finishes
+// the row, and the levels run one after another, each loading its row after
+// the previous level's result.  They are the simple design, not a tuned one
+// (ROADMAP.md §2).  Scores are packed uint16 values carried zero-extended in
+// int32, exactly as the port's tree stores them; masks are bytes
+// (torch.bool).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -349,6 +355,100 @@ __global__ void __launch_bounds__(kWarps * 32) score_backup_kernel(
   }
 }
 
+// One level of the wide scan, for K > 32: `p` = invert_up of the child's
+// score (uniform), `row` the level's K edge scores and `act` their activity
+// (act(k) false for an inactive slot), `slot` the traversed slot (out of
+// [0, K): none), `valid`/`complete`/`ns` the level's scalars.  Returns the
+// new node score; `e_new` gets the new edge score of the slot.  Uniform
+// across the warp.
+template <typename Row, typename Act>
+__device__ __forceinline__ int wide_level(int p, Row row, Act act, int slot, bool valid,
+                                          bool complete, int ns, int K, int lane,
+                                          int& e_new) {
+  const bool in_range = (slot >= 0) & (slot < K);
+  // the slot's stored score: its owner lane reads it, the warp takes it
+  const int owner = in_range ? slot & 31 : 0;
+  const int mine_at = (in_range & (lane == owner)) ? row(slot) : 0;
+  const int at_slot = __shfl_sync(kFull, mine_at, owner);
+  e_new = (valid & is_proven(p)) ? p : at_slot;
+  int best = 0;
+  bool all_proven = true;
+  for (int k = lane; k < K; k += 32) {
+    if (!act(k)) continue;
+    const int v = k == slot ? e_new : row(k);
+    best = max(best, v);
+    all_proven = all_proven & is_proven(v);
+  }
+  best = __reduce_max_sync(kFull, best);
+  all_proven = __all_sync(kFull, all_proven);
+  const bool provable = is_win(best) | (all_proven & complete & is_proven(best));
+  return (valid & provable) ? best : ns;
+}
+
+// score_scan for K > 32: one row per warp, levels bottom-up.
+__global__ void __launch_bounds__(kWarps * 32) score_scan_wide_kernel(
+    const int32_t* __restrict__ start, const uint8_t* __restrict__ valid,
+    const int32_t* __restrict__ sl, const int32_t* __restrict__ es,
+    const uint8_t* __restrict__ ea, const uint8_t* __restrict__ comp,
+    const int32_t* __restrict__ ns, int32_t* __restrict__ e_out,
+    int32_t* __restrict__ ns_out, int R, int D, int K) {
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (row >= R) return;  // uniform per warp
+  const int lane = threadIdx.x & 31;
+  int child = start[row];
+  for (int d = D - 1; d >= 0; --d) {
+    const int64_t at = row * D + d;
+    const bool vd = valid[at] != 0;
+    const int32_t* es_row = es + at * K;
+    const uint8_t* ea_row = ea + at * K;
+    int e_new;
+    const int ns_new = wide_level(
+        invert_up(child), [&](int k) { return es_row[k]; }, [&](int k) { return ea_row[k] != 0; },
+        sl[at], vd, comp[at] != 0, ns[at], K, lane, e_new);
+    child = vd ? ns_new : child;
+    if (lane == 0) {
+      e_out[at] = e_new;
+      ns_out[at] = ns_new;
+    }
+  }
+}
+
+// score_backup for K > 32: one board's path per warp, levels bottom-up,
+// each level's row read from the tree and its new scores written back
+// before the next (shallower) level, which names another node.
+__global__ void __launch_bounds__(kWarps * 32) score_backup_wide_kernel(
+    int32_t* edge_score, const int32_t* __restrict__ edge_action,
+    const uint8_t* __restrict__ node_complete, int32_t* node_score,
+    const int64_t* __restrict__ pn, const int64_t* __restrict__ ps,
+    const int32_t* __restrict__ start, int B, int N, int D, int K) {
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (b >= B) return;  // uniform per warp
+  const int lane = threadIdx.x & 31;
+  const int64_t tree = b * N;  // node 0 of this board
+  int child = start[b];
+  for (int d = D - 1; d >= 0; --d) {
+    const int64_t node64 = pn[b * D + d];
+    if (node64 == kNull) continue;  // the scan passes the child through
+    const int64_t slot64 = ps[b * D + d];
+    if (node64 < 0 || node64 >= N || slot64 < 0 || slot64 >= K) __trap();
+    const int64_t node = tree + node64;
+    const int slot = static_cast<int>(slot64);
+    const int32_t* es_row = edge_score + node * K;
+    const int32_t* ea_row = edge_action + node * K;
+    int e_new;
+    const int ns_new = wide_level(
+        invert_up(child), [&](int k) { return es_row[k]; },
+        [&](int k) { return ea_row[k] != kNull; }, slot, true, node_complete[node] != 0,
+        node_score[node], K, lane, e_new);
+    __syncwarp();  // every lane's reads of this row before the writes
+    if (lane == 0) {
+      edge_score[node * K + slot] = e_new;
+      node_score[node] = ns_new;
+    }
+    child = ns_new;
+  }
+}
+
 template <typename Kernel>
 cudaError_t occupancy(Kernel kernel, int* info) {
   cudaFuncAttributes attr;
@@ -367,9 +467,10 @@ extern "C" int ag_score_scan(const void* start, const void* valid, const void* s
                              const void* es, const void* ea, const void* comp,
                              const void* ns, void* e_out, void* ns_out, int R, int D,
                              int K, void* stream) {
-  if (K > 32) return static_cast<int>(cudaErrorInvalidValue);
-  if (R <= 0 || D <= 0) return 0;
-  auto kernel = D <= 16 ? &score_scan_kernel<16> : &score_scan_kernel<32>;
+  if (R <= 0 || D <= 0 || K <= 0) return 0;
+  auto kernel = K > 32     ? &score_scan_wide_kernel
+                : D <= 16 ? &score_scan_kernel<16>
+                          : &score_scan_kernel<32>;
   kernel<<<(R + kWarps - 1) / kWarps, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(start), static_cast<const uint8_t*>(valid),
       static_cast<const int32_t*>(sl), static_cast<const int32_t*>(es),
@@ -383,9 +484,10 @@ extern "C" int ag_score_backup(void* edge_score, const void* edge_action,
                                const void* node_complete, void* node_score, const void* pn,
                                const void* ps, const void* start, int B, int N, int D, int K,
                                void* stream) {
-  if (K > 32) return static_cast<int>(cudaErrorInvalidValue);
-  if (B <= 0 || D <= 0) return 0;
-  auto kernel = D <= 16 ? &score_backup_kernel<16> : &score_backup_kernel<32>;
+  if (B <= 0 || D <= 0 || K <= 0) return 0;
+  auto kernel = K > 32     ? &score_backup_wide_kernel
+                : D <= 16 ? &score_backup_kernel<16>
+                          : &score_backup_kernel<32>;
   kernel<<<(B + kWarps - 1) / kWarps, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<int32_t*>(edge_score), static_cast<const int32_t*>(edge_action),
       static_cast<const uint8_t*>(node_complete), static_cast<int32_t*>(node_score),
@@ -395,10 +497,15 @@ extern "C" int ag_score_backup(void* edge_score, const void* edge_action,
 }
 
 // What an instantiation gets from the card: `backup` picks score_backup
-// (else score_scan), `D` the depth it is launched for.  info[0] blocks per
-// SM, info[1] registers per thread, info[2] static shared memory (bytes),
-// info[3] local memory (spills) per thread (bytes).
-extern "C" int ag_score_scan_occupancy(int backup, int D, int* info) {
+// (else score_scan), `D` the depth it is launched for, `K` the edge slots
+// (K > 32: the wide kernel).  info[0] blocks per SM, info[1] registers per
+// thread, info[2] static shared memory (bytes), info[3] local memory
+// (spills) per thread (bytes).
+extern "C" int ag_score_scan_occupancy(int backup, int D, int K, int* info) {
+  if (K > 32) {
+    return static_cast<int>(backup ? occupancy(&score_backup_wide_kernel, info)
+                                   : occupancy(&score_scan_wide_kernel, info));
+  }
   if (backup) {
     return static_cast<int>(
         occupancy(D <= 16 ? &score_backup_kernel<16> : &score_backup_kernel<32>, info));

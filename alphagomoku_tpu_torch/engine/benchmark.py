@@ -7,9 +7,11 @@ write `benchmark.json`, then derive `config.json` picking the
 throughput-maximizing batch size plus the reference's search defaults
 (max_children=32, c_puct ~ the exploration constant, solver enabled).
 
-The forward measured is the one the port's engine runs: `fused_apply` (the
-trunk kernel on the card) on a `pack_weights` snapshot of a network with
-seeded weights, on bf16 planes of empty boards.  Each point times whole
+The forward measured is the one the port's engine runs,
+`models.forward.network_apply` of a network with seeded weights (for the
+convnext trunk `fused_apply`, the trunk kernel on the card, on a
+`pack_weights` snapshot; for the other trunks the module's forward), on
+bf16 planes of empty boards.  Each point times whole
 calls, the device synchronised after each, as the reference package blocks
 until each result is ready.
 """
@@ -22,8 +24,8 @@ import time
 
 import torch
 
+from ..models.forward import network_apply
 from ..models.networks import create_network, init_random_
-from ..ops import convnext_fused as CF
 
 BATCH_SIZES = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
 
@@ -49,18 +51,18 @@ def run_benchmark(
     device = torch.device(device)
     net = create_network(architecture, blocks, filters, rows, cols)
     init_random_(net, torch.Generator().manual_seed(0))
-    weights = CF.pack_weights(net.to(device))
+    apply, weights = network_apply(net.to(device))
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else str(device)
     results = []
     for batch in batch_sizes:
         x = torch.zeros((batch, rows, cols, net.cfg.input_planes), dtype=torch.bfloat16,
                         device=device)
-        CF.fused_apply(weights, x)
+        apply(weights, x)
         _sync(device)
         t_end = time.perf_counter() + seconds_per_point
         samples = 0
         while time.perf_counter() < t_end:
-            CF.fused_apply(weights, x)
+            apply(weights, x)
             _sync(device)
             samples += batch
         results.append(

@@ -10,18 +10,22 @@ scans `sim_chunk` jitted steps, the port calls its simulation step
 `sim_chunk` times; the root score is read once a chunk.
 
 The network is `models.networks.create_network`, loaded from the flax
-checkpoint with the port's reader (`utils/checkpoint.py`), and the searches
-evaluate it through `ops.convnext_fused.fused_apply` on a `pack_weights`
-snapshot: the trunk kernel on the card.  `Engine._apply(variables, planes)`
-is the one seam through which the network is called.
+checkpoint with the port's reader (`utils/checkpoint.py`), of any
+architecture of the zoo, and the searches evaluate it through
+`models.forward.network_apply`: the trunk kernel on the card for the
+convnext trunk (`fused_apply` on a `pack_weights` snapshot), the module's
+own forward on a snapshot for every other trunk.
+`Engine._apply(variables, planes)` is the one seam through which the
+network is called.
 
 Known difference: without a checkpoint the reference package initialises
 its network from `jax.random.PRNGKey(seed)`, which torch cannot reproduce;
 the port draws its own seeded weights (`models.networks.init_random_` from
 a `torch.Generator` seeded with `seed`).  A checkpoint trained for another
-board size does not load (its moves-left head has rows * cols buckets): the
-port raises ValueError at construction, where the reference package fails
-at its first search.
+board size does not load (its moves-left head has rows * cols buckets, a
+transformer block's positional embedding rows * cols tokens): the port
+raises ValueError at construction, where the reference package fails at
+its first search.
 
 Threads: `ProgramManager` searches in a background thread for ponder and
 analysis.  torch's grad mode is thread-local, so `search` enters
@@ -42,8 +46,8 @@ from ..game import board as board_mod
 from ..game import vectorized as V
 from ..game.types import CROSS, Move, GameRules, invert_sign
 from ..models.convert import from_flax
+from ..models.forward import network_apply
 from ..models.networks import create_network, init_random_
-from ..ops import convnext_fused as CF
 from ..search import mcts, selectors, vcf
 from ..search import vct as VCT
 from ..search import score as S
@@ -158,7 +162,8 @@ def load_network(architecture: str, blocks: int, filters: int, rows: int, cols: 
         raise ValueError(
             f"checkpoint {checkpoint} does not fit a {rows}x{cols} board: {wrong[0]} has shape "
             f"{tuple(state[wrong[0]].shape)}, the network needs {tuple(own[wrong[0]].shape)} "
-            "(the moves-left head has rows * cols buckets)")
+            "(the moves-left head has rows * cols buckets, a transformer block's "
+            "positional embedding rows * cols tokens)")
     net.load_state_dict(state)
     return net.eval()
 
@@ -194,7 +199,7 @@ class Engine:
         self.tables = V.device_tables(rules)
         self.net = load_network(architecture, blocks, filters, rows, cols, checkpoint,
                                 seed).to(self.device)
-        self.variables = CF.pack_weights(self.net)
+        self._forward, self.variables = network_apply(self.net)
         self.moves: list[Move] = []
         # capacity 3x the per-move budget leaves headroom to carry the
         # subtree across moves (reference: NodeCache tree reuse); an engine
@@ -230,7 +235,7 @@ class Engine:
     # -- the network seam and the search pieces ---------------------------
 
     def _apply(self, v, planes):
-        return CF.fused_apply(v, planes)
+        return self._forward(v, planes)
 
     def _net_apply(self, v, planes):
         return self._apply(v, planes)  # looked up at call time: tests patch _apply

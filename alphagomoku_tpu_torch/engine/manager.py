@@ -548,10 +548,9 @@ def main(argv: list[str] | None = None) -> None:
                    help="where --benchmark and --configure write their files")
     args = p.parse_args(argv)
     if args.selfcheck:
-        # utils/selfcheck.py searches with a FastPolicy network (ROADMAP.md
-        # item 11) at max_edges 81, beyond score_backup's 32 lanes
-        raise NotImplementedError(
-            "--selfcheck is not ported yet (ROADMAP.md, 'Modules to port', items 11 and 14)")
+        from ..utils.selfcheck import run_selfcheck
+
+        raise SystemExit(0 if run_selfcheck(device=args.device) else 1)
     if args.benchmark or args.configure:
         from .benchmark import main as bench_main
 

@@ -1,16 +1,17 @@
-"""The network zoo registry and the convnext-trunk network.
+"""The network zoo: the registry and one parametric network.
 
 Port of the reference package's `models/networks.py`: `NetOutput`,
-`ModelConfig`, the `create_network` registry with every reference
-architecture name (reference: include/alphagomoku/networks/
-networks.hpp:16-250) and `postprocess`.  `AGNetwork` is ported for the
-`convnext` trunk; the names whose trunk is not ported yet raise
-NotImplementedError.  Inputs and spatial outputs are NHWC at this public
+`ModelConfig`, `AGNetwork` with every trunk (resnet, bottleneck v1-v3,
+convnext, convnext_moe, transformer, unet, unet_transformer), the
+`create_network` registry with every reference architecture name
+(reference: include/alphagomoku/networks/networks.hpp:16-250) and
+`postprocess`.  Inputs and spatial outputs are NHWC at this public
 boundary, as in the reference package; the modules are NCHW inside.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import NamedTuple
 
@@ -48,29 +49,54 @@ class ModelConfig:
         return 8 if self.raw_input else 32
 
 
-TRUNK_NOT_PORTED = (
-    "trunk {!r} is not ported yet (ROADMAP.md, 'Modules to port', item 11: "
-    "the rest of the network zoo)"
-)
+TRUNKS = ("resnet", "bottleneck_v1", "bottleneck_v2", "bottleneck_v3", "convnext",
+          "convnext_moe", "transformer", "unet", "unet_transformer")
+
+
+def _trunk_block(cfg: ModelConfig, i: int, rows: int, cols: int) -> nn.Module:
+    """Block i of a block-stack trunk, as the reference package's
+    `AGNetwork.__call__` builds it."""
+    f, dt = cfg.filters, cfg.dtype
+    if cfg.trunk == "resnet":
+        return B.ResidualBlock(f, dt)
+    if cfg.trunk.startswith("bottleneck"):
+        return B.BottleneckBlock(f, int(cfg.trunk[-1]), dt)
+    if cfg.trunk == "convnext_moe" and i == cfg.blocks - 1:
+        # the reference puts the MoE in the LAST block only
+        # (ConvNextMoE_PVQMraw, networks.cpp:1334-1369)
+        return B.MoEConvNextBlock(f, dt)
+    if cfg.trunk in ("convnext", "convnext_moe"):
+        return B.ConvNextBlock(f, dt)
+    return B.TransformerBlock(f, f, rows * cols, dt)
 
 
 class AGNetwork(nn.Module):
-    """Stem + convnext trunk + heads.  Input: [B, H, W, C] planes (C = 8 raw
-    or 32 feature planes); `rows`, `cols` size the moves-left head."""
+    """Stem + trunk + heads.  Input: [B, H, W, C] planes (C = 8 raw or 32
+    feature planes); `rows`, `cols` size the moves-left head and the
+    transformer blocks' positional embeddings.  A block-stack trunk is
+    `blocks`; the unet trunks (which ignore `cfg.blocks`) are `unet`."""
 
     def __init__(self, cfg: ModelConfig, rows: int = 15, cols: int = 15):
         super().__init__()
-        if cfg.trunk != "convnext":
-            raise NotImplementedError(TRUNK_NOT_PORTED.format(cfg.trunk))
+        if cfg.trunk not in TRUNKS:
+            raise ValueError(f"unknown trunk {cfg.trunk!r}")
         f, dt = cfg.filters, cfg.dtype
         self.cfg = cfg
         self.stem = B.ConvBN(cfg.input_planes, f, cfg.input_kernel, dtype=dt)
-        self.blocks = nn.ModuleList(B.ConvNextBlock(f, dt) for _ in range(cfg.blocks))
-        self.policy = B.PolicyHead(f, 1, dt)
+        if cfg.trunk.startswith("unet"):
+            self.blocks = nn.ModuleList()
+            self.unet = B.UnetTrunk(f, rows, cols, "transformer" if cfg.trunk.endswith(
+                "transformer") else "conv", dt)
+        else:
+            self.blocks = nn.ModuleList(
+                _trunk_block(cfg, i, rows, cols) for i in range(cfg.blocks))
+            self.unet = None
+        pk = 1 if cfg.trunk == "convnext" else 3  # head kernel (reference package)
+        self.policy = B.PolicyHead(f, pk, dt)
         self.value = B.ValueHead(f, min(256, 2 * f), dt)
-        self.q = B.ActionValuesHead(f, 1, dt) if "q" in cfg.heads else None
+        self.q = B.ActionValuesHead(f, pk, dt) if "q" in cfg.heads else None
         self.moves_left = B.MovesLeftHead(f, rows * cols, dtype=dt) if "m" in cfg.heads else None
-        self.soft_policy = B.PolicyHead(f, 1, dt) if "s" in cfg.heads else None
+        self.soft_policy = B.PolicyHead(f, pk, dt) if "s" in cfg.heads else None
 
     def stem_forward(self, planes: torch.Tensor, train: bool = False) -> torch.Tensor:
         """NHWC planes -> NCHW stem activation in the compute dtype."""
@@ -88,6 +114,8 @@ class AGNetwork(nn.Module):
         x = self.stem_forward(planes, train)
         for blk in self.blocks:
             x = blk(x, train)
+        if self.unet is not None:
+            x = self.unet(x, train)
         return self.heads_forward(x, train)
 
     @torch.no_grad()
@@ -159,7 +187,27 @@ def list_architectures() -> list[str]:
     return sorted(_REGISTRY)
 
 
+@torch.no_grad()
+def snapshot(net: AGNetwork) -> AGNetwork:
+    """A detached inference copy of `net` (no gradients, eval mode), so
+    that training `net` afterwards does not change it; `net` keeps its
+    train/eval mode."""
+    snap = copy.deepcopy(net).eval().requires_grad_(False)
+    for p in snap.parameters():
+        p.grad = None
+    return snap
+
+
 _BIAS_STD = 0.1
+_POS_STD = 0.02  # flax's normal(0.02) of TransformerBlock.pos_embedding
+
+
+def _norm_scales(net: nn.Module) -> set[int]:
+    return {id(m.weight) for m in net.modules() if isinstance(m, (B.BatchNorm, B.RMSNorm))}
+
+
+def _pos_embeddings(net: nn.Module) -> set[int]:
+    return {id(m.pos_embedding) for m in net.modules() if isinstance(m, B.TransformerBlock)}
 
 
 @torch.no_grad()
@@ -169,13 +217,17 @@ def init_random_(net: AGNetwork, generator: torch.Generator) -> AGNetwork:
     N(0, 1/fan_in), as flax's default `lecun_normal`; biases, BatchNorm
     shifts and the BatchNorm scales' offsets from 1 from N(0, 0.1^2), so
     that no bias is zero (a check that a kernel kept each bias needs them
-    nonzero).  The BatchNorm statistics stay at mean 0, variance 1.
-    Returns `net`."""
-    bn_scales = {id(m.weight) for m in net.modules() if isinstance(m, B.BatchNorm)}
+    nonzero).  RMSNorm scales are drawn as BatchNorm scales, the transformer
+    blocks' positional embeddings from N(0, 0.02^2), as flax initialises
+    them.  The BatchNorm statistics stay at mean 0, variance 1.  Returns
+    `net`."""
+    scales, pos = _norm_scales(net), _pos_embeddings(net)
     for p in net.parameters():
         noise = torch.randn(p.shape, generator=generator, dtype=torch.float32)
-        if id(p) in bn_scales:
+        if id(p) in scales:
             p.copy_(1.0 + _BIAS_STD * noise)
+        elif id(p) in pos:
+            p.copy_(_POS_STD * noise)
         elif p.dim() > 1:  # conv (O, I, kh, kw) or dense (O, I) kernel
             p.copy_(noise / p[0].numel() ** 0.5)
         else:
@@ -189,11 +241,14 @@ def init_flax_(net: AGNetwork, generator: torch.Generator) -> AGNetwork:
     network (the draws are `generator`'s, not `jax.random`'s): conv and
     dense kernels from `lecun_normal` (a normal of variance 1/fan_in
     truncated at two standard deviations), biases and BatchNorm shifts 0,
-    BatchNorm scales 1, statistics mean 0 and variance 1.  Returns `net`."""
-    bn_scales = {id(m.weight) for m in net.modules() if isinstance(m, B.BatchNorm)}
+    BatchNorm and RMSNorm scales 1, positional embeddings from
+    N(0, 0.02^2), statistics mean 0 and variance 1.  Returns `net`."""
+    scales, pos = _norm_scales(net), _pos_embeddings(net)
     for p in net.parameters():
-        if id(p) in bn_scales:
+        if id(p) in scales:
             p.fill_(1.0)
+        elif id(p) in pos:
+            p.normal_(0.0, _POS_STD, generator=generator)
         elif p.dim() > 1:  # conv (O, I, kh, kw) or dense (O, I) kernel
             std = (1.0 / p[0].numel()) ** 0.5 / 0.87962566103423978
             nn.init.trunc_normal_(p, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)

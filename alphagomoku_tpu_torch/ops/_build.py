@@ -35,7 +35,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     "ag_score_scan": [_P] * 9 + [_I, _I, _I, _P],
     "ag_score_backup": [_P] * 7 + [_I, _I, _I, _I, _P],
-    "ag_score_scan_occupancy": [_I, _I, _P],
+    "ag_score_scan_occupancy": [_I, _I, _I, _P],
     "ag_convnext_trunk": [_P] * 13 + [_I, _I, _I, _I, _I, _P],
     "ag_convnext_trunk_occupancy": [_I, _I, _I, _P],
 }

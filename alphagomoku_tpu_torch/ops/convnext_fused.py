@@ -17,13 +17,12 @@ stay plain PyTorch ops, as they stay XLA ops in the reference package.
 
 from __future__ import annotations
 
-import copy
 from typing import NamedTuple
 
 import torch
 
 from ..models.blocks import BF16, fold_bn
-from ..models.networks import AGNetwork, NetOutput
+from ..models.networks import AGNetwork, NetOutput, snapshot
 from . import _build
 
 __all__ = [
@@ -230,9 +229,7 @@ def pack_weights(net: AGNetwork) -> FusedWeights:
     `net` keeps its train/eval mode.  Pack again after an optimizer step."""
     if net.cfg.trunk != "convnext":
         raise NotImplementedError(f"fused forward needs the convnext trunk, got {net.cfg.trunk}")
-    snap = copy.deepcopy(net).eval().requires_grad_(False)
-    for p in snap.parameters():
-        p.grad = None
+    snap = snapshot(net)
     return FusedWeights(snap, pack_trunk_weights(snap))
 
 

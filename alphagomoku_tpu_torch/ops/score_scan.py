@@ -27,6 +27,10 @@ CUDA tensors and on their plain versions for CPU tensors:
   path per board (`leaf_batch = 1`); more paths per board need the claim
   dedup of the JAX backup first (ROADMAP.md, item 10).
 
+Both take any K, as the Pallas kernel does: K <= 32 edge slots run the
+staged kernels (one lane a slot), K > 32 the wide kernels (each lane a
+slot every 32), chosen by K on the host.
+
 Scores are packed uint16 values carried in int32.
 """
 
@@ -80,11 +84,6 @@ def _check(name, t, dtype, shape, device, what="score_scan"):
         raise ValueError(f"{what}: {name} must be contiguous")
 
 
-def _check_lanes(K, what):
-    if K > 32:
-        raise ValueError(f"{what}: K = {K} edges exceeds the kernel's 32 lanes")
-
-
 def score_scan(start, valid, sl, es, ea, comp, ns):
     """Backward minimax over selection paths: the CUDA kernel for CUDA
     tensors, `score_scan_plain` for CPU tensors."""
@@ -94,7 +93,6 @@ def score_scan(start, valid, sl, es, ea, comp, ns):
         raise ValueError(f"score_scan: unsupported device {start.device}")
     R, D = valid.shape
     K = es.shape[2]
-    _check_lanes(K, "score_scan")
     dev = start.device
     _check("start", start, torch.int32, (R,), dev)
     _check("valid", valid, torch.bool, (R, D), dev)
@@ -174,7 +172,6 @@ def score_backup(edge_score, edge_action, node_complete, node_score, pn, ps, sta
         return
     if dev.type != "cuda":
         raise ValueError(f"score_backup: unsupported device {dev}")
-    _check_lanes(K, what)
     err = _build.library().ag_score_backup(
         edge_score.data_ptr(), edge_action.data_ptr(), node_complete.data_ptr(),
         node_score.data_ptr(), pn.data_ptr(), ps.data_ptr(), start_score.data_ptr(),
@@ -187,13 +184,15 @@ def score_backup(edge_score, edge_action, node_complete, node_score, pn, ps, sta
 score_backup.launches = 0
 
 
-def scan_occupancy(D: int = 16) -> dict:
-    """What the current card gives the kernels launched at depth D, by
-    entry point: blocks per SM, registers per thread, static shared memory
-    per block (bytes) and local memory per thread (bytes; spills)."""
+def scan_occupancy(D: int = 16, K: int = 32) -> dict:
+    """What the current card gives the kernels launched at depth D with K
+    edge slots, by entry point: blocks per SM, registers per thread, static
+    shared memory per block (bytes) and local memory per thread (bytes;
+    spills)."""
     out = {}
     for backup, name in ((0, "score_scan"), (1, "score_backup")):
         info = (ctypes.c_int * 4)()
-        _build.check(_build.library().ag_score_scan_occupancy(backup, D, info), "scan_occupancy")
+        _build.check(_build.library().ag_score_scan_occupancy(backup, D, K, info),
+                     "scan_occupancy")
         out[name] = dict(zip(("blocks_per_sm", "registers", "smem_bytes", "local_bytes"), info))
     return out

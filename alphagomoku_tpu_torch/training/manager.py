@@ -18,9 +18,11 @@ the caller asks for the CPU):
 - SIGINT-graceful stop between phases (reference: os_utils
   setupSignalHandler polling, TrainingManager.cpp:88-92)
 
-The network is trained in place (`train.TrainState`); self-play, the
-openings, gating and evaluation search with `_host_vars()`, a fresh
-`FusedWeights` snapshot of it, so that they never share tensors with the
+The network, of any architecture of the zoo, is trained in place
+(`train.TrainState`); self-play, the openings, gating and evaluation
+search with `models.forward.network_apply` of it, the fused trunk for the
+convnext trunk and the module's forward for the others, on a fresh
+snapshot (`_host_vars()`), so that they never share tensors with the
 module being trained.  Device-side draws come from `torch.Generator`s
 seeded from the manager's numpy generator, one per self-play round and
 per opening set, and from one generator for the train step's symmetries.
@@ -43,8 +45,8 @@ from ..data.replay import ReplayBuffer
 from ..game import vectorized as V
 from ..game.types import GameRules
 from ..models.convert import from_flax, to_flax
+from ..models.forward import net_apply_for, network_apply
 from ..models.networks import AGNetwork, create_network, init_flax_
-from ..ops import convnext_fused as CF
 from ..search import mcts
 from ..selfplay import (
     SelfplayConfig,
@@ -157,15 +159,17 @@ class TrainingManager:
         self.train_cfg = T.TrainConfig(learning_rate=cfg.learning_rate)
         self.state, self.tx = T.create_train_state(self.net, self.train_cfg)
         self._train_step = T.make_train_step(self.net, self.tx, self.tables, self.train_cfg)
+        self._apply = net_apply_for(self.net.cfg)
         self._play_mcfg = None
         self.last_timings: dict[str, float] = {}
 
-    def _host_vars(self) -> CF.FusedWeights:
-        """The network as the searches take it: a fresh `FusedWeights` from
-        a detached snapshot of the module being trained (`pack_weights`),
-        so that self-play, openings, gating and evaluation neither see later
-        optimizer steps nor share tensors with training."""
-        return CF.pack_weights(self.net)
+    def _host_vars(self):
+        """The network's variables as the searches take them
+        (`network_apply`): a detached snapshot of the module being trained
+        (for the convnext trunk a fresh `FusedWeights`), so that self-play,
+        openings, gating and evaluation neither see later optimizer steps
+        nor share tensors with training.  `self._apply` evaluates them."""
+        return network_apply(self.net)[1]
 
     def _new_net(self, arch: str | None = None, blocks: int = 0, filters: int = 0) -> AGNetwork:
         cfg = self.cfg
@@ -290,7 +294,7 @@ class TrainingManager:
                     # NN+search-balanced openings (reference:
                     # OpeningGenerator, GameGenerator PREPARE_OPENING)
                     boards = generate_balanced_openings(
-                        CF.fused_apply, weights, self.tables, gen, cfg.selfplay_batch,
+                        self._apply, weights, self.tables, gen, cfg.selfplay_batch,
                         cfg.rows, cfg.cols, stones=cfg.opening_stones,
                         raw_input=self.net.cfg.raw_input,
                     )
@@ -305,7 +309,7 @@ class TrainingManager:
                         last_print[0] = time.time()
 
                 result = play_games_resumable(
-                    CF.fused_apply, weights, self.tables, mcfg, scfg, gen, cfg.selfplay_batch,
+                    self._apply, weights, self.tables, mcfg, scfg, gen, cfg.selfplay_batch,
                     cfg.rows, cfg.cols, chunk_moves=cfg.selfplay_chunk_moves,
                     should_stop=lambda: sig.hit,
                     snapshot_path=os.path.join(state_dir, f"midgame_{gen_id}.npz"),
@@ -419,16 +423,16 @@ class TrainingManager:
             if not os.path.exists(path):
                 continue
             seen.add(idx)
-            opponents.append(Opponent(CF.fused_apply, CF.pack_weights(self._load_net(path)), raw,
+            opponents.append(Opponent(*network_apply(self._load_net(path)), raw,
                                       name=f"AG_{idx:03d}"))
         if not opponents:
             return []
         # the candidate loads from its checkpoint FILE, not live state: the
         # evaluation may overlap the next training iteration
-        last = CF.pack_weights(self._load_net(self.checkpoint_path(iteration)))
+        apply, last = network_apply(self._load_net(self.checkpoint_path(iteration)))
         openings = random_openings(self.rng, cfg.eval_games // 2, cfg.rows, cfg.cols)
         results = play_multi_match(
-            CF.fused_apply, last, opponents, self.tables,
+            apply, last, opponents, self.tables,
             mcts.MCTSConfig(max_nodes=cfg.num_simulations + 8, max_edges=32, max_depth=32),
             cfg.num_simulations, openings, raw_input_a=raw, device=self.device,
         )
@@ -452,7 +456,7 @@ class TrainingManager:
             self.metadata["best_checkpoint"] = iteration
             self._save_metadata()
             return {"promoted": True, "score": 1.0, "elo": 0.0}
-        best_vars = CF.pack_weights(self._load_net(self.checkpoint_path(best)))
+        best_apply, best_vars = network_apply(self._load_net(self.checkpoint_path(best)))
         last_vars = self._host_vars()
         cfg = self.cfg
         raw = self.net.cfg.raw_input
@@ -461,13 +465,13 @@ class TrainingManager:
             # (EvaluationGame uses OpeningGenerator openings)
             stones = cfg.opening_stones + (cfg.opening_stones % 2)  # even
             openings = generate_balanced_openings(
-                CF.fused_apply, last_vars, self.tables, self._generator(),
+                self._apply, last_vars, self.tables, self._generator(),
                 cfg.gating_games // 2, cfg.rows, cfg.cols, stones=stones, raw_input=raw,
             )
         else:
             openings = random_openings(self.rng, cfg.gating_games // 2, cfg.rows, cfg.cols)
         result = play_match(
-            CF.fused_apply, last_vars, CF.fused_apply, best_vars, self.tables,
+            self._apply, last_vars, best_apply, best_vars, self.tables,
             mcts.MCTSConfig(max_nodes=cfg.num_simulations + 8, max_edges=32, max_depth=32),
             cfg.num_simulations, openings, raw_input_a=raw, raw_input_b=raw,
             device=self.device, on_ply=on_ply,

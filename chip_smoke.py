@@ -130,6 +130,25 @@ Phases, one line each (any failure exits non-zero):
      realtime search over the YixinBoard protocol; the benchmark sweep
      and config (`engine/benchmark.py`, written under
      build/chip_smoke/engine_benchmark/);
+ 21. zoo and selfcheck - part 1 (run after phase 4, before the first
+     trace of search steps): score_scan and score_backup at K = 33, 81
+     and 225 edge slots (the wide kernels: each lane a slot every 32),
+     D = 16 and 32, bit-equal to their plain versions and timed beside
+     their bytes bounds; parts 2-4 (run last): every trunk family but
+     convnext at the launcher's width (6x64; the unets at 64; FastPolicy
+     at 2x32) with seeded weights: an 8-sim search at B = 256 on the
+     bench boards through `models.forward.network_apply` (score_backup
+     once a step, the trunk kernel never) and its ms per step, timed
+     alone; then, with nothing timed any more, `python -m
+     alphagomoku_tpu_torch.engine.manager --selfcheck` as a child process
+     (rc 0, five PASS lines) while one 50-sim BEGIN runs through the
+     port's ProgramManager with `--arch Transformer_v2`, each zoo
+     network's forward is held against a CPU copy's (float32 within 1e-3;
+     bf16 within tests/test_ops.py's absolute rule and no farther from the
+     float32 heads than the CPU's) and its train step too on two batches
+     (float32 at the CPU tests' tolerances; bfloat16 in phase 19's bands
+     but its 0.5 cap), and the selfcheck's search runs in this process
+     with the launches counted (16 at K = 81);
 then a `kernels` JSON line and, last, {"ok": true, "device": {...}}.
 
 A kernel's `ms` is its device time per launch: for score_scan and
@@ -325,20 +344,22 @@ def backup_check(tree: dict, tag: str):
     return [kernel_tree[k] for k in names], changed
 
 
-def backup_phase(tree: dict, tag: str) -> dict:
-    """`backup_check`, then score_backup's device time with the rows in L2
-    and after a 128 MB write that evicts them, its call and plain times,
-    and its bytes bound at this input's valid levels and at full depth."""
+def backup_phase(tree: dict, tag: str, kernel: str = "score_backup_kernel",
+                 plain_reps: int = 20) -> dict:
+    """`backup_check`, then score_backup's device time (of `kernel`) with
+    the rows in L2 and after a 128 MB write that evicts them, its call and
+    plain times (the plain one over `plain_reps` calls), and its bytes
+    bound at this input's valid levels and at full depth."""
     import torch
     from alphagomoku_tpu_torch.ops import score_scan as SSM
 
     args, changed = backup_check(tree, tag)
     flush = torch.empty(32 << 20, dtype=torch.int32, device=args[0].device)
-    ms = kernel_device_ms(lambda: SSM.score_backup(*args), "score_backup_kernel")
-    cold_ms = kernel_device_ms(lambda: (flush.zero_(), SSM.score_backup(*args)),
-                               "score_backup_kernel")
+    ms = kernel_device_ms(lambda: SSM.score_backup(*args), kernel)
+    cold_ms = kernel_device_ms(lambda: (flush.zero_(), SSM.score_backup(*args)), kernel)
     call_ms = time_cuda(lambda: SSM.score_backup(*args))
-    plain_ms = time_cuda(lambda: SSM.score_backup_plain(*args))
+    plain_ms = time_cuda(lambda: SSM.score_backup_plain(*args), reps=plain_reps,
+                         warmup=min(3, plain_reps))
     pn, K = tree["pn"], tree["edge_score"].shape[2]
     nbytes = backup_bytes(pn, K)
     full_bytes = backup_bytes(torch.zeros_like(pn), K)
@@ -503,12 +524,13 @@ def network_phase(weights, planes, tag: str) -> None:
             raise SystemExit(f"{tag}: the check passed {name} without the last b2: {fault}")
 
 
-def search_phase(weights, tables, cfg, boards, stm, sims: int, tag: str, net_apply=None):
+def search_phase(weights, tables, cfg, boards, stm, sims: int, tag: str, net_apply=None,
+                 trunk_launches=None, raw_input: bool = True):
     """One `run_search` of `sims` simulations (through `net_apply`, by
     default `fused_apply`) with the kernels' launch counts set to 0 just
-    before it and read just after; the search's invariants; a line with
-    sims/s and launches per step.  Returns the final state and the launch
-    counts."""
+    before it and read just after (the trunk's must be `trunk_launches`,
+    by default sims + 1); the search's invariants; a line with sims/s and
+    launches per step.  Returns the final state and the launch counts."""
     import torch
     from alphagomoku_tpu_torch.ops import convnext_fused as CF
     from alphagomoku_tpu_torch.ops import score_scan as SSM
@@ -521,13 +543,14 @@ def search_phase(weights, tables, cfg, boards, stm, sims: int, tag: str, net_app
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state = mcts.run_search(net_apply or CF.fused_apply, weights, tables, cfg, boards, stm,
-                            sims, device=boards.device)
+                            sims, raw_input, device=boards.device)
     move = mcts.select_move(state)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {"score_scan": SSM.score_scan.launches, "score_backup": SSM.score_backup.launches,
                 "fused_trunk": CF.fused_trunk.launches}
-    if launches != {"score_scan": 0, "score_backup": sims, "fused_trunk": sims + 1}:
+    trunk = sims + 1 if trunk_launches is None else trunk_launches
+    if launches != {"score_scan": 0, "score_backup": sims, "fused_trunk": trunk}:
         raise SystemExit(f"{tag}: the kernels were not launched once per step inside "
                          f"run_search: {launches}")
     tree = state.tree
@@ -537,13 +560,14 @@ def search_phase(weights, tables, cfg, boards, stm, sims: int, tag: str, net_app
         raise SystemExit(f"{tag}: an unproven root does not hold 1 + sims visits")
     if int(tree.node_count.max()) > cfg.max_nodes:
         raise SystemExit(f"{tag}: node_count exceeds max_nodes")
-    if not bool((boards.reshape(BATCH, -1).gather(1, move[:, None]) == 0).all()):
+    if not bool((boards.reshape(boards.shape[0], -1).gather(1, move[:, None]) == 0).all()):
         raise SystemExit(f"{tag}: select_move chose an occupied cell")
     if not bool(torch.isfinite(mcts.root_value(state)).all()):
         raise SystemExit(f"{tag}: non-finite root value")
     summary = state.stats.summary(state.sims_done)
     root = tree.node_score[:, 0]
-    print(f"{tag}: {sims} sims x batch {BATCH} in {dt:.3f} s = {BATCH * sims / dt:.1f} sims/s, "
+    bsz = boards.shape[0]
+    print(f"{tag}: {sims} sims x batch {bsz} in {dt:.3f} s = {bsz * sims / dt:.1f} sims/s, "
           f"{dt / sims * 1e3:.3f} ms per simulation step; launches {launches}, "
           f"{sum(launches.values()) / sims:.4f} of the kernels per step; "
           f"proven roots {int(root_proven.sum())} (won {int(S.is_win(root).sum())}, lost "
@@ -933,17 +957,18 @@ def _step_on(net, batch: dict, modes, dtype=None) -> dict:
     `dtype`, at that compute dtype): the losses, gradients and BatchNorm
     statistics after it, on the host, by state_dict key."""
     import copy
+    import dataclasses
     import torch
     from alphagomoku_tpu_torch.game import vectorized as V
     from alphagomoku_tpu_torch.game.types import GameRules
-    from alphagomoku_tpu_torch.models.networks import create_network
+    from alphagomoku_tpu_torch.models.networks import AGNetwork
     from alphagomoku_tpu_torch.training import train as T
 
     dev = batch["board"].device
     if dtype is None:
         copy_ = copy.deepcopy(net).to(dev)
     else:
-        copy_ = create_network("ConvNextPVQMraw", net.cfg.blocks, net.cfg.filters, H, W, dtype)
+        copy_ = AGNetwork(dataclasses.replace(net.cfg, dtype=dtype), H, W)
         copy_.load_state_dict(net.state_dict())
         copy_ = copy_.to(dev)
     cfg = T.TrainConfig()
@@ -1001,6 +1026,77 @@ def hold_train_step(net, batch_np: dict) -> str:
             f"statistics worst {worst_stat:.3g}; gradients from a float32 step: card "
             f"{g_card:.4f}, CPU {g_cpu:.4f} over all tensors, the card's worst tensor "
             f"{worst:.4f}")
+
+
+def hold_zoo_train_step(net, batches: list) -> str:
+    """A zoo network's train step on the card against the same step on a
+    CPU copy, on each of `batches` (the first TRAIN_CHECK_SAMPLES samples,
+    the same modes on both sides).  At a float32 compute dtype on each
+    batch at tests/test_torch_train.py's float32 tolerances (losses and
+    statistics within 1e-2, each gradient tensor within 3e-2 relative L2,
+    norms floored at 1e-3 of the largest), which holds the arithmetic.  In
+    bfloat16 phase 19's bands (`hold_train_step`): on each batch losses
+    within 1e-2 max(1, |loss|) and statistics within 1e-2; the card's
+    gradients no farther from the float32 CPU step's than the CPU's, with
+    the distances averaged over the batches: over all tensors within 1.25
+    times, each tensor within twice, at least 0.1.  Phase 19's cap of 0.5
+    on a tensor is not held: a zoo network's own bfloat16 step, on the CPU
+    as in flax, lies farther than that from its float32 step
+    (tests/torch_golden/bf16_spread.py: bottleneck_v2's BatchNorm scales),
+    so the cap would fail a correct card.  The line prints each batch's
+    distances and the CPU's worst tensor."""
+    import torch
+    from alphagomoku_tpu_torch.training import train as T
+
+    n = TRAIN_CHECK_SAMPLES
+    modes = T.draw_modes(torch.Generator().manual_seed(0), n, H, W)
+    d_cpu, d_card, g_cpu, g_card = {}, {}, [], []
+    worst32, worst_stat = {"loss": 0.0, "grads": 0.0, "stats": 0.0}, 0.0
+    for batch_np in batches:
+        host = {k: torch.from_numpy(v[:n]) for k, v in batch_np.items()}
+        on_card = {k: v.cuda() for k, v in host.items()}
+        exact = _step_on(net, host, modes, torch.float32)
+        exact_card = _step_on(net, on_card, modes, torch.float32)
+        cpu, card = _step_on(net, host, modes), _step_on(net, on_card, modes)
+        floor = 1e-3 * max(float(g.norm()) for g in exact["grads"].values())
+        parts32 = {
+            "loss": max(abs(exact_card["loss"][k] - v) / max(1.0, abs(v))
+                        for k, v in exact["loss"].items()),
+            "grads": max(_rel(exact["grads"][k], g, floor)
+                         for k, g in exact_card["grads"].items()),
+            "stats": max(_rel(exact["stats"][k], b) for k, b in exact_card["stats"].items())}
+        if not (parts32["loss"] <= 1e-2 and parts32["grads"] <= 3e-2
+                and parts32["stats"] <= 1e-2):
+            raise SystemExit(f"zoo train: the float32 step on the card vs the CPU's: {parts32}")
+        worst32 = {k: max(v, parts32[k]) for k, v in worst32.items()}
+        for k, v in cpu["loss"].items():
+            if not abs(card["loss"][k] - v) <= 1e-2 * max(1.0, abs(v)):
+                raise SystemExit(f"zoo train: loss {k} on the card {card['loss'][k]} vs the "
+                                 f"CPU {v}")
+        worst_stat = max([worst_stat] + [_rel(cpu["stats"][k], card["stats"][k])
+                                         for k in cpu["stats"]])
+        if not worst_stat <= 1e-2:
+            raise SystemExit(f"zoo train: BatchNorm statistics differ by {worst_stat}")
+        for k, g in exact["grads"].items():
+            d_cpu[k] = d_cpu.get(k, 0.0) + _rel(g, cpu["grads"][k], floor) / len(batches)
+            d_card[k] = d_card.get(k, 0.0) + _rel(g, card["grads"][k], floor) / len(batches)
+        flat = lambda t: torch.cat([t[k].flatten() for k in exact["grads"]])
+        g_cpu.append(_rel(flat(exact["grads"]), flat(cpu["grads"])))
+        g_card.append(_rel(flat(exact["grads"]), flat(card["grads"])))
+    mean_cpu, mean_card = statistics.fmean(g_cpu), statistics.fmean(g_card)
+    ratio = max(d_card[k] / max(2 * d_cpu[k], 0.1) for k in d_cpu)
+    cpu_worst = max(d_cpu, key=d_cpu.get)
+    readings = (f"bfloat16 gradients from float32 per batch: card "
+                f"{', '.join(f'{g:.4f}' for g in g_card)}, CPU "
+                f"{', '.join(f'{g:.4f}' for g in g_cpu)} (mean ratio {mean_card / mean_cpu:.3f}, "
+                f"at most 1.25); each tensor at most {ratio:.3f} of its band; the CPU's worst "
+                f"tensor {d_cpu[cpu_worst]:.4f} ({cpu_worst}), the card's "
+                f"{max(d_card.values()):.4f}")
+    if not (mean_card <= 1.25 * mean_cpu and ratio <= 1.0):
+        raise SystemExit(f"zoo train: {readings}")
+    return (f"train step at B={n} on {len(batches)} batches: float32 on the card vs the CPU's, "
+            f"worst relative {json.dumps({k: float(f'{v:.3g}') for k, v in worst32.items()})}; "
+            f"bfloat16 losses within 1e-2, statistics worst {worst_stat:.3g}; {readings}")
 
 
 def train_phase(paths: dict, generation: dict) -> dict:
@@ -1476,6 +1572,294 @@ def _same_tree(a: dict, b: dict) -> bool:
     return np.array_equal(a, b)
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the network zoo and --selfcheck
+# ---------------------------------------------------------------------------
+
+WIDE_K = (33, 81, 225)  # edge slots of the K > 32 kernels held here
+WIDE_D = (16, 32)  # their path depths
+WIDE_NODES = 64  # nodes per tree of the K > 32 backups
+WIDE_PLAIN_REPS = 3  # calls timed of their plain versions (20 to 60 ms each)
+# score_backup_kernel<16> on the flagship tree's paths before the wide
+# kernels were added (PERF.md §6)
+BACKUP_MS_BEFORE_WIDE = 0.00577
+ZOO_SIMS = 8
+ZOO_BATCH = 256
+ZOO_SEED = 0  # torch.Generator seed of every zoo network's weights
+ZOO_TRAIN_BATCHES = 2  # batches of TRAIN_CHECK_SAMPLES of each zoo network's train step hold
+ZOO_CHECK_BOARDS = 16  # boards of each zoo network's forward held against the CPU
+ZOO_ENGINE_ARCH = "Transformer_v2"
+# every trunk family but convnext (phases 5-20) at the launcher's width
+# (--blocks 6 --filters 64; the unets take no block count), and the
+# selfcheck's FastPolicy at its registry's 2x32; bottleneck v1 has no
+# registry name and is built from its ModelConfig
+ZOO = {
+    "resnet": "ResnetPVQraw",
+    "bottleneck_v1": dict(trunk="bottleneck_v1", heads="pv", raw_input=True),
+    "bottleneck_v2": "BottleneckPV",
+    "bottleneck_v3": "BottleneckBroadcastPVraw",
+    "transformer": "Transformer_v2",
+    "unet": "ConvUnet",
+    "unet_transformer": "TransformerUnet",
+    "convnext_moe": "ConvNextMoE_PVQMraw",
+    "fast_policy": "FastPolicy",
+}
+
+
+def zoo_network(family: str):
+    """The zoo network of `family` with seeded weights, on the card."""
+    import torch
+    from alphagomoku_tpu_torch.models import networks as TN
+
+    spec = ZOO[family]
+    if isinstance(spec, dict):
+        net = TN.AGNetwork(TN.ModelConfig(**spec, blocks=6, filters=64), H, W)
+    elif spec == "FastPolicy":
+        net = TN.create_network(spec)
+    else:
+        net = TN.create_network(spec, blocks=6, filters=64)
+    return TN.init_random_(net, torch.Generator().manual_seed(ZOO_SEED)).to("cuda").eval()
+
+
+def wide_kernels_phase() -> dict:
+    """Phase 21, part 1 (run after phase 4, before the first trace of
+    search steps, after which torch.profiler misses lone launches):
+    score_scan and score_backup at K = 33, 81 and 225 edge slots, D = 16
+    and 32 levels, each bit-equal to its plain version and timed beside
+    its bytes bound.  Returns the measurements by entry point and shape,
+    and the seconds."""
+    import torch
+    from alphagomoku_tpu_torch.ops import score_scan as SSM
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    out = {"score_scan": {}, "score_backup": {}}
+    R = BATCH
+    for K in WIDE_K:
+        for D in WIDE_D:
+            args = tuple(torch.from_numpy(a).to(dev) for a in random_scan_inputs(R, D, K, K + D))
+            e_k, ns_k = SSM.score_scan(*args)
+            e_p, ns_p = SSM.score_scan_plain(*args)
+            torch.cuda.synchronize()
+            if not (torch.equal(e_k, e_p) and torch.equal(ns_k, ns_p)):
+                raise SystemExit(f"score_scan K={K} D={D}: kernel disagrees with the plain "
+                                 "version")
+            ms = kernel_device_ms(lambda: SSM.score_scan(*args), "score_scan_wide_kernel")
+            plain_ms = time_cuda(lambda: SSM.score_scan_plain(*args), reps=WIDE_PLAIN_REPS,
+                                 warmup=1)
+            nbytes = 2 * (R + R * D * K + 3 * R * D) + (R * D * K + 3 * R * D)
+            bound_ms = nbytes / HBM_BPS * 1e3
+            out["score_scan"][f"K={K} D={D}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+            print(f"score_scan K={K}: bit-equal at R={R} D={D}; kernel {ms:.5f} ms on the "
+                  f"device, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({nbytes} bytes "
+                  "at u16 scores)", flush=True)
+            del args, e_k, ns_k, e_p, ns_p
+            tree = {k: torch.from_numpy(v).to(dev) for k, v in
+                    random_backup_inputs(R, WIDE_NODES, D, K, K + D).items()}
+            out["score_backup"][f"K={K} D={D}"] = backup_phase(
+                tree, f"score_backup K={K}", "score_backup_wide_kernel", WIDE_PLAIN_REPS)
+            del tree
+    occ = SSM.scan_occupancy(32, 81)
+    if any(o["local_bytes"] for o in occ.values()):
+        raise SystemExit(f"score_scan: a wide kernel spills to local memory: {occ}")
+    seconds = time.perf_counter() - t0
+    print("wide kernels occupancy: " + "; ".join(
+        f"{name}: {o['registers']} registers per thread, {o['blocks_per_sm']} blocks per SM, "
+        f"{o['local_bytes']} bytes of local memory" for name, o in occ.items())
+        + f"; phase 21 part 1: {seconds:.1f} s", flush=True)
+    return dict(entries=out, occupancy=occ, seconds=seconds)
+
+
+def forward_on_card_vs_cpu(net, planes, tag: str) -> str:
+    """A zoo network's module forward on the card against a CPU copy's on
+    the same planes.  At a float32 compute dtype within 1e-3 of the
+    largest magnitude, which holds the arithmetic.  In bfloat16 within
+    tests/test_ops.py's absolute rule, and no farther from the CPU's
+    float32 heads than the CPU's bfloat16 heads are (relative L2 over all
+    heads, within 1.25 times, as phase 19 holds the gradients).
+    HEAD_LIMITS' share of logits differing is printed, not required: flax
+    and the port, both correct, differ in more than a quarter of their
+    bfloat16 logits at this width on one CPU, and lie equally far from the
+    float32 heads (tests/torch_golden/bf16_spread.py), since each library
+    sums in its own order and a flipped rounding spreads through the
+    blocks.  Returns the line's summary."""
+    import copy
+    import dataclasses
+
+    import torch
+    from alphagomoku_tpu_torch.models.networks import AGNetwork
+    from alphagomoku_tpu_torch.ops import convnext_fused as CF
+
+    f32 = AGNetwork(dataclasses.replace(net.cfg, dtype=torch.float32), H, W)
+    f32.load_state_dict(net.state_dict())
+    f32 = f32.to(planes.device).eval()
+    host = planes.cpu()
+    heads = lambda out: {k: getattr(out, k).float().cpu() for k in out._fields
+                         if getattr(out, k) is not None}
+    with torch.no_grad():
+        exact, exact_card = heads(copy.deepcopy(f32).cpu()(host)), heads(f32(planes))
+        cpu, card = heads(copy.deepcopy(net).cpu()(host)), heads(net(planes))
+    share, worst_rel = 0.0, 0.0
+    for name, a in exact.items():
+        rel = float((a - exact_card[name]).abs().max()) / max(float(a.abs().max()), 1e-6)
+        if not rel <= 1e-3:
+            raise SystemExit(f"{tag}: {name} at float32 on the card vs the CPU: {rel}")
+        worst_rel = max(worst_rel, rel)
+        stats = held(cpu[name], card[name], CF.HEAD_LIMITS)
+        if not stats["abs_ok"]:
+            raise SystemExit(f"{tag}: {name} on the card vs the CPU: {stats}")
+        share = max(share, stats["share_differ"])
+    flat = lambda t: torch.cat([t[k].flatten() for k in exact])
+    d_cpu, d_card = _rel(flat(exact), flat(cpu)), _rel(flat(exact), flat(card))
+    summary = (f"float32 within {worst_rel:.3g} of the largest logit; bf16 within the absolute "
+               f"rule, from the CPU's float32 heads: card {d_card:.5f}, CPU {d_cpu:.5f} (ratio "
+               f"{d_card / d_cpu:.3f}, at most 1.25); HEAD_LIMITS' share differing "
+               f"{share:.4f} (printed)")
+    if not d_card <= 1.25 * d_cpu:
+        raise SystemExit(f"{tag}: forward: {summary}")
+    return summary
+
+
+def zoo_phase(generation: dict, flagship_backup_ms: float) -> dict:
+    """Phase 21, parts 2-4.  First what is timed, with no other process at
+    work: for each zoo network a ZOO_SIMS-sim search at B = ZOO_BATCH on
+    the bench boards through `network_apply` (score_backup once a step,
+    the trunk kernel never) and ms per step of ZOO_SIMS more steps.  Then
+    `python -m alphagomoku_tpu_torch.engine.manager --selfcheck` as a
+    child process, and while it runs: one 50-sim BEGIN through the port's
+    ProgramManager with `--arch Transformer_v2`; each zoo network's
+    forward on the card against a CPU copy's (`forward_on_card_vs_cpu`)
+    and its train step against a CPU copy's on ZOO_TRAIN_BATCHES batches
+    (`hold_zoo_train_step`); the selfcheck's search in this process with
+    the launches counted (K = 81: the wide kernel); last the child's rc 0
+    and five PASS lines.  Returns the launches by path, the ms per step
+    and the seconds."""
+    import io
+
+    import numpy as np
+    import torch
+    from alphagomoku_tpu_torch.data import ReplayBuffer
+    from alphagomoku_tpu_torch.engine.manager import ProgramManager
+    from alphagomoku_tpu_torch.game import vectorized as V
+    from alphagomoku_tpu_torch.game.types import CROSS, GameRules
+    from alphagomoku_tpu_torch.models.forward import network_apply
+    from alphagomoku_tpu_torch.ops import convnext_fused as CF
+    from alphagomoku_tpu_torch.ops import score_scan as SSM
+    from alphagomoku_tpu_torch.patterns import features as FEAT
+    from alphagomoku_tpu_torch.search import mcts
+    from alphagomoku_tpu_torch.utils import selfcheck
+
+    t_phase = time.perf_counter()
+    print(f"phase 21: the 81-edge score_backup of --selfcheck beside the K = 32 one: the flagship "
+          f"tree's score_backup_kernel<16> {flagship_backup_ms:.5f} ms in this run, "
+          f"{BACKUP_MS_BEFORE_WIDE} ms before the wide kernels were added", flush=True)
+    dev = torch.device("cuda")
+    tables = V.device_tables(GameRules.FREESTYLE)
+    boards = torch.from_numpy(bench_boards(ZOO_BATCH)).to(dev)
+    stm = torch.full((ZOO_BATCH,), CROSS, dtype=torch.int8, device=dev)
+    cfg = mcts.MCTSConfig(max_nodes=2 * ZOO_SIMS + 8, max_edges=32, max_depth=16)
+    paths, step_ms, nets = {}, {}, {}
+    for family in ZOO:
+        net = nets[family] = zoo_network(family)
+        raw = net.cfg.raw_input
+        apply, variables = network_apply(net)
+        if apply is CF.fused_apply:
+            raise SystemExit(f"zoo {family}: network_apply chose the convnext kernel")
+        state, paths[family] = search_phase(variables, tables, cfg, boards, stm, ZOO_SIMS,
+                                            f"zoo {family}", apply, 0, raw)
+        simulate = mcts.make_simulate_fn(apply, tables, cfg, raw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ZOO_SIMS):
+            state = simulate(variables, state)
+        torch.cuda.synchronize()
+        step_ms[family] = (time.perf_counter() - t0) / ZOO_SIMS * 1e3
+        print(f"zoo {family} ({net.cfg.trunk} {net.cfg.blocks}x{net.cfg.filters}, "
+              f"{'raw' if raw else 'feature'} planes, heads {net.cfg.heads}): "
+              f"{step_ms[family]:.3f} ms per simulation step at B={ZOO_BATCH}", flush=True)
+        del variables, state, simulate
+    timed = time.perf_counter() - t_phase
+
+    # nothing below is timed: the selfcheck child runs beside the checks.
+    # Its processes each need device memory of their own (a context,
+    # cuBLAS's workspace), so this process hands back its cached blocks
+    # first: with them held, a 4-context start failed in cublasCreate
+    reserved = torch.cuda.memory_reserved()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"phase 21: device memory before the selfcheck child: this process reserved "
+          f"{reserved} bytes, {torch.cuda.memory_reserved()} after empty_cache; free "
+          f"{free} of {total}", flush=True)
+    t_child = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, "-m", "alphagomoku_tpu_torch.engine.manager", "--selfcheck"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        # one engine move through the launcher's ProgramManager
+        mgr = ProgramManager(protocol="extended", architecture=ZOO_ENGINE_ARCH, device="cuda",
+                             instream=None, outstream=io.StringIO())
+        SSM.score_backup.launches = CF.fused_trunk.launches = SSM.score_scan.launches = 0
+        with _EngineLog() as log:
+            answer = _answers(_drive(mgr, "START 15", f"INFO max_node {ENGINE_MAX_NODE}",
+                                     "BEGIN"))
+        paths["engine_transformer"] = {"score_scan": SSM.score_scan.launches,
+                                       "score_backup": SSM.score_backup.launches,
+                                       "fused_trunk": CF.fused_trunk.launches}
+        (s,) = log.searches
+        steps = s["timings"].get("steps", 0)
+        mv = s["summary"].best_move
+        if (len(answer) != 1 or steps < 1 or s["board"][mv.row, mv.col] != 0
+                or (s["score_backup"], s["fused_trunk"]) != (steps, 0)
+                or not np.isfinite([s["summary"].expectation, s["summary"].win_rate]).all()):
+            raise SystemExit(f"zoo engine: --arch {ZOO_ENGINE_ARCH} answered {answer} in "
+                             f"{steps} steps, launches {paths['engine_transformer']}")
+        print(f"zoo engine: --arch {ZOO_ENGINE_ARCH} (6x64, 32 feature planes, moves-left "
+              f"head) answered BEGIN with {answer[0]}, {steps} steps at B=1, beside the "
+              f"selfcheck child ({s['seconds']:.2f} s); launches "
+              f"{paths['engine_transformer']}", flush=True)
+        del mgr, log
+
+        packed = FEAT.encode(tables, boards[:ZOO_CHECK_BOARDS], stm[:ZOO_CHECK_BOARDS])
+        buf = ReplayBuffer()
+        buf.add_generation(0, generation)
+        batches = [buf.sample(TRAIN_CHECK_SAMPLES, np.random.default_rng(2 + i))
+                   for i in range(ZOO_TRAIN_BATCHES)]
+        for family, net in nets.items():
+            t0 = time.perf_counter()
+            planes = (FEAT.unpack_raw_planes(packed) if net.cfg.raw_input
+                      else FEAT.unpack_planes(packed))
+            worst = forward_on_card_vs_cpu(net, planes, f"zoo {family}")
+            hold = hold_zoo_train_step(net, batches)
+            print(f"zoo {family}: forward on the card vs the CPU: {worst}; {hold} "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        del nets
+
+        # the selfcheck's search in this process: 16 steps at K = 81
+        SSM.score_backup.launches = CF.fused_trunk.launches = SSM.score_scan.launches = 0
+        if selfcheck._check_search("cuda") != "win-in-1 found":
+            raise SystemExit("zoo: the selfcheck search failed in process")
+        paths["selfcheck"] = {"score_scan": SSM.score_scan.launches,
+                              "score_backup": SSM.score_backup.launches,
+                              "fused_trunk": CF.fused_trunk.launches}
+        if paths["selfcheck"] != {"score_scan": 0, "score_backup": 16, "fused_trunk": 0}:
+            raise SystemExit(f"zoo: the selfcheck search launched {paths['selfcheck']}")
+
+        out, _ = child.communicate(timeout=300)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    passes = [ln for ln in out.splitlines() if ln.startswith("[PASS] ")]
+    print(f"selfcheck (child process, {time.perf_counter() - t_child:.1f} s from its start): "
+          + " | ".join(out.strip().splitlines()), flush=True)
+    if child.returncode != 0 or len(passes) != 5:
+        raise SystemExit(f"selfcheck: rc {child.returncode}, {len(passes)} PASS lines:\n{out}")
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 21 parts 2-4: {seconds:.1f} s ({timed:.1f} s timed, before the selfcheck "
+          f"child started); the selfcheck search at K = 81: {paths['selfcheck']}", flush=True)
+    return dict(paths=paths, step_ms=step_ms, seconds=seconds)
+
+
 def main() -> int:
     import torch
 
@@ -1564,6 +1948,9 @@ def main() -> int:
                  random_backup_inputs(BATCH, 808, D, K, seed=1).items()}
     backup_random = backup_phase(rand_tree, "score_backup")
     del rand_tree
+
+    # 21, part 1. score_scan and score_backup at K > 32 (the wide kernels)
+    wide = wide_kernels_phase()
 
     # 5. fused_trunk at B = 1280, C = 64, L = 6 with network_23
     net = network_from_flax(checkpoint.load(CKPT)).to(dev)
@@ -1681,6 +2068,16 @@ def main() -> int:
     # trained weights, gating
     trained = train_phase(paths, generation)
 
+    # 21, parts 2-4. the network zoo, an engine move with Transformer_v2,
+    # and --selfcheck
+    zoo = zoo_phase(generation, backup_flagship["ms"])
+    paths.update({(f if f in ("engine_transformer", "selfcheck") else f"zoo_{f}"): n
+                  for f, n in zoo["paths"].items()})
+    print(f"phase 21: {wide['seconds'] + zoo['seconds']:.1f} s by its own clock (part 1 "
+          f"{wide['seconds']:.1f} s, parts 2-4 {zoo['seconds']:.1f} s); zoo ms per simulation "
+          f"step at B={ZOO_BATCH}: " + json.dumps({k: round(v, 3) for k, v in
+                                                  zoo["step_ms"].items()}), flush=True)
+
     trunk = dict(name="fused_trunk", route="cuda",
                  source="alphagomoku_tpu_torch/csrc/convnext_trunk.cu",
                  replaces="alphagomoku_tpu/ops/convnext_fused.py:92", **trunk64)
@@ -1689,9 +2086,20 @@ def main() -> int:
     trunk.update(trained)
     trunk["engine_b1"] = engine["fused_trunk"]
     kernels.append(trunk)
+    top = "K=81 D=16"  # the wide entries' headline shape: the selfcheck's K
+    for name in ("score_scan", "score_backup"):
+        kernels.append(dict(
+            name=f"{name}_wide", route="cuda", source="alphagomoku_tpu_torch/csrc/score_scan.cu",
+            replaces="alphagomoku_tpu/ops/score_scan.py:111", status="bit-equal", max_abs_err=0.0,
+            bound_by="bytes", library_ms=None, shape=top, **wide["entries"][name][top],
+            shapes=wide["entries"][name], **wide["occupancy"][name]))
+    # the selfcheck's search is the one path at K > 32
     for k in kernels:
-        k["launches"] = paths["flagship"][k["name"]]
-        k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items()}
+        wrapper = k["name"].removesuffix("_wide")
+        wide_kernel = wrapper != k["name"]
+        k["launches"] = paths["selfcheck" if wide_kernel else "flagship"][wrapper]
+        k["launches_by_path"] = {p: n[wrapper] for p, n in paths.items()
+                                 if (p == "selfcheck") == wide_kernel}
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

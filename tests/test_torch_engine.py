@@ -423,16 +423,24 @@ def test_solver_budget_tuner_brackets():
 # ---------------------------------------------------------------------------
 
 
-def test_entry_points_default_to_the_card():
+def test_entry_points_default_to_the_card(monkeypatch):
     import inspect
+
+    from alphagomoku_tpu_torch.utils import selfcheck
 
     for fn in (TE.Engine.__init__, TMGR.ProgramManager.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     parser_default = re.search(r'"--device", default="(\w+)"',
                                Path(TMGR.__file__).read_text()).group(1)
     assert parser_default == "cuda"
-    with pytest.raises(NotImplementedError, match="items 11 and 14"):
+    # --selfcheck runs the checks on the launcher's device (the card by
+    # default) and exits 0 when they pass (tests/test_torch_selfcheck.py
+    # runs them)
+    seen = []
+    monkeypatch.setattr(selfcheck, "run_selfcheck", lambda **kw: seen.append(kw) or True)
+    with pytest.raises(SystemExit) as exit_:
         TMGR.main(["--selfcheck"])
+    assert exit_.value.code == 0 and seen == [{"device": "cuda"}]
 
 
 def test_checkpoint_of_another_board_size_raises():

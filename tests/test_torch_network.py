@@ -222,12 +222,18 @@ def test_init_random_is_seeded_and_keeps_bn_statistics():
 
 
 def test_registry_names_and_unported_trunks():
+    """Every registry name builds in the port (no trunk is left unported),
+    with the reference package's trunk, heads and input planes."""
+    from alphagomoku_tpu.models import create_network as jax_create_network
     from alphagomoku_tpu.models import list_architectures as jax_list
     from alphagomoku_tpu_torch.models.networks import list_architectures
 
     assert list_architectures() == jax_list()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_network("ResnetPV")
+    for name in list_architectures():
+        net, ref = create_network(name, blocks=1, filters=16), jax_create_network(name)
+        assert (net.cfg.trunk, net.cfg.heads, net.cfg.raw_input) == (
+            ref.cfg.trunk, ref.cfg.heads, ref.cfg.raw_input), name
+        assert (net.unet is None) == (not net.cfg.trunk.startswith("unet")), name
     assert create_network("ConvNextPVQMSraw", blocks=1, filters=16).soft_policy is not None
 
 

@@ -15,6 +15,7 @@ import torch
 
 from alphagomoku_tpu_torch.ops import score_scan as TSS
 from tests.test_torch_score_scan import random_inputs
+from tests.test_torch_score_scan import to_torch as scan_to_torch
 
 torch.set_num_threads(1)
 
@@ -23,6 +24,11 @@ NULL = -1
 CASES = [(8, 40, 12, 16, 0), (16, 40, 16, 32, 1), (24, 40, 6, 8, 2), (12, 40, 16, 8, 3),
          (8, 60, 48, 32, 4)]
 BENCH = (1280, 808, 16, 32, 5)
+# K > 32, the wide kernels (each lane a slot every 32): K up to a 20x20
+# board's cells, at D within one chunk of 16 and of 32 levels, and at the
+# engine's D = 40
+WIDE = [(8, 40, 12, 33, 7), (16, 30, 16, 81, 8), (8, 40, 32, 225, 9), (8, 60, 40, 81, 10),
+        (4, 50, 40, 400, 11)]
 
 
 @pytest.fixture
@@ -85,7 +91,7 @@ def run(fn, tree):
     return t
 
 
-@pytest.mark.parametrize("B,N,D,K,seed", CASES)
+@pytest.mark.parametrize("B,N,D,K,seed", CASES + WIDE[:2])
 def test_plain_matches_jax_composition(B, N, D, K, seed):
     """Bit-identical to the JAX composition; only the path's traversed
     edges and nodes may change, and some do."""
@@ -133,6 +139,30 @@ def test_kernel_matches_plain_on_card(B, N, D, K, seed, cuda_device):
     torch.cuda.synchronize()
     for name in tree:
         assert torch.equal(out[name], ref[name]), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,D,K,seed", WIDE + [(1280, 200, 16, 81, 12), (256, 60, 40, 225, 13)])
+def test_wide_kernels_match_plain_on_card(B, N, D, K, seed, cuda_device):
+    """K > 32: score_backup on the tree and score_scan on the path's rows
+    gathered, both bit-equal to their plain versions."""
+    tree = random_tree(B, N, D, K, seed)
+    out = run(TSS.score_backup, to_torch(tree, cuda_device))
+    ref = run(TSS.score_backup_plain, to_torch(tree, cuda_device))
+    for name in tree:
+        assert torch.equal(out[name], ref[name]), name
+    args = scan_to_torch(random_inputs(B, D, K, seed), cuda_device)
+    got, want = TSS.score_scan(*args), TSS.score_scan_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [33, 81, 225])
+def test_wide_kernels_keep_their_state_in_registers(K, cuda_device):
+    for name, occ in TSS.scan_occupancy(40, K).items():
+        assert occ["local_bytes"] == 0, (name, occ)
+        assert occ["blocks_per_sm"] >= 1, (name, occ)
 
 
 @pytest.mark.cuda

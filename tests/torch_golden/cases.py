@@ -28,6 +28,8 @@ from tests import test_torch_threats as threat_tests
 from tests import test_torch_train as train_tests
 from tests import test_torch_vct as vct_tests
 from tests import test_torch_vcf as vcf_tests
+from tests import test_torch_zoo as zoo_tests
+from tests import test_torch_selfcheck as selfcheck_tests
 
 CASES = {
     "stub_search_standard": lambda: mcts_tests.jax_stub_search(GameRules.STANDARD),
@@ -72,4 +74,6 @@ CASES = {
        for name in engine_tests.CASES},
     "engine_flagship": engine_tests.jax_engine_flagship,
     "host_vct": host_rules_tests.jax_host_vct,
+    "zoo_train_steps": zoo_tests.jax_zoo_train_steps,
+    "selfcheck_search": selfcheck_tests.jax_selfcheck_search,
 }
