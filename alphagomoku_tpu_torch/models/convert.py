@@ -12,6 +12,7 @@ the reference package's checkpoint.  Both cover every trunk of the zoo:
 the attention projections' kernels [C, heads, head_dim] (q/k/v) and
 [heads, head_dim, C] (out) become dense (out, in) matrices, and a
 positional embedding [1, H*W, C] is carried as it is.
+`tree_policy_from_jax` carries the learnable tree policy's MLP weights.
 """
 
 from __future__ import annotations
@@ -241,3 +242,15 @@ def to_flax(state_dict: dict[str, torch.Tensor]) -> dict:
         return {k: ordered(node[k]) for k in sorted(node)} if isinstance(node, dict) else node
 
     return {coll: ordered(sub) for coll, sub in tree.items()}
+
+
+def tree_policy_from_jax(params, device="cpu"):
+    """The reference package's `TreePolicyParams` pytree (fields w1, b1,
+    w2, b2, w3, b3; arrays or numpy) -> the port's
+    `search.tree_policy.TreePolicyParams` of float32 tensors on `device`
+    (the same [in, out] layouts)."""
+    from ..search.tree_policy import TreePolicyParams
+
+    return TreePolicyParams(*(
+        torch.from_numpy(np.asarray(getattr(params, name), np.float32).copy()).to(device)
+        for name in TreePolicyParams._fields))

@@ -156,7 +156,7 @@ def score_backup(edge_score, edge_action, node_complete, node_score, pn, ps, sta
     if pn.shape[0] != B:
         raise ValueError(
             f"score_backup: {pn.shape[0]} paths for {B} trees; one path per board only "
-            "(leaf_batch > 1 needs the claim dedup, ROADMAP.md item 10)"
+            "(S paths per board: score_backup_paths)"
         )
     dev = edge_score.device
     what = "score_backup"
@@ -182,6 +182,69 @@ def score_backup(edge_score, edge_action, node_complete, node_score, pn, ps, sta
 
 
 score_backup.launches = 0
+
+
+def dedup_claims(key, new, old, valid):
+    """Per board, the change each path position [B, P] claims for its
+    `key` (an edge or a node) kept for the strongest claim only: a claim
+    that changes nothing loses to any that changes something, then the
+    higher packed score wins (ranked as the unsigned 16-bit value:
+    Node::updateScore = max), then the earliest position (the reference's
+    sequential task order).  Returns new - old for the winners that change
+    their key, 0 elsewhere: at most one nonzero per (board, key)."""
+    P = key.shape[1]
+    changes = (new != old) & valid
+    rank = new + (changes.to(new.dtype) << 17)
+    p_iota = torch.arange(P, device=key.device)
+    same = (key[:, :, None] == key[:, None, :]) & valid[:, None, :]
+    beats = (rank[:, None, :] > rank[:, :, None]) | (
+        (rank[:, None, :] == rank[:, :, None]) & (p_iota[None, :] < p_iota[:, None])[None])
+    win = valid & ~(same & beats).any(-1)
+    return torch.where(win & changes, new - old, 0)
+
+
+def score_backup_paths(edge_score, edge_action, node_complete, node_score, pn, ps, start_score):
+    """Proven-score backup of S paths per board, in place on the tree.
+    edge_score, edge_action [B, N, K] int32; node_complete [B, N] bool;
+    node_score [B, N] int32; pn, ps [B, S, D] int64, each path's node and
+    slot per level (NULL past the path); start_score [B, S] int32, each
+    leaf's score.  The scan runs on `score_scan` (its CUDA kernel for CUDA
+    tensors, `score_scan_plain` for CPU tensors); the gathers, the claim
+    dedup and the placement are tensor ops, as they are XLA ops outside
+    the Pallas kernel in the reference package."""
+    B, N, K = edge_score.shape
+    S_, D = pn.shape[1], pn.shape[2]
+    P = S_ * D
+    dev = edge_score.device
+    what = "score_backup_paths"
+    _check("edge_score", edge_score, torch.int32, (B, N, K), dev, what)
+    _check("edge_action", edge_action, torch.int32, (B, N, K), dev, what)
+    _check("node_complete", node_complete, torch.bool, (B, N), dev, what)
+    _check("node_score", node_score, torch.int32, (B, N), dev, what)
+    _check("pn", pn, torch.int64, (B, S_, D), dev, what)
+    _check("ps", ps, torch.int64, (B, S_, D), dev, what)
+    _check("start_score", start_score, torch.int32, (B, S_), dev, what)
+    valid = pn != NULL  # [B, S, D]
+    nd = torch.where(valid, pn, 0)
+    sl = torch.where(valid, ps, 0)
+    bb = torch.arange(B, device=dev)[:, None, None]
+    es_rows = torch.where(valid[..., None], edge_score[bb, nd], 0)  # [B, S, D, K]
+    ea_rows = (edge_action[bb, nd] != NULL) & valid[..., None]
+    comp_rows = node_complete[bb, nd] & valid
+    ns_rows = torch.where(valid, node_score[bb, nd], 0)
+    e_new, ns_new = score_scan(
+        start_score.reshape(B * S_), valid.reshape(B * S_, D),
+        sl.to(torch.int32).reshape(B * S_, D), es_rows.reshape(B * S_, D, K),
+        ea_rows.reshape(B * S_, D, K), comp_rows.reshape(B * S_, D), ns_rows.reshape(B * S_, D),
+    )
+    valid_p = valid.reshape(B, P)
+    nd_p, sl_p = nd.reshape(B, P), sl.reshape(B, P)
+    e_old = es_rows.gather(3, sl[..., None]).reshape(B, P)
+    e_delta = dedup_claims(nd_p * K + sl_p, e_new.reshape(B, P), e_old, valid_p)
+    ns_delta = dedup_claims(nd_p, ns_new.reshape(B, P), ns_rows.reshape(B, P), valid_p)
+    bp = torch.arange(B, device=dev)[:, None].expand(B, P)
+    edge_score.index_put_((bp, nd_p, sl_p), e_delta, accumulate=True)
+    node_score.index_put_((bp, nd_p), ns_delta, accumulate=True)
 
 
 def scan_occupancy(D: int = 16, K: int = 32) -> dict:

@@ -149,11 +149,37 @@ Phases, one line each (any failure exits non-zero):
      (float32 at the CPU tests' tolerances; bfloat16 in phase 19's bands
      but its 0.5 cap), and the selfcheck's search runs in this process
      with the launches counted (16 at K = 81);
+ 22. the rest of search (run after phase 20, before phase 8) -
+     `run_search` at leaf_batch 4 (four descents a step under virtual
+     loss) with network_23 at the bench configuration, `LB_SIMS` sims in
+     50 steps: launches counted around it (score_scan once a step, backup
+     B being `score_backup_paths`; score_backup never; the trunk once a
+     step and once for the roots), the search's gates, one more step
+     replayed on CPU copies of `REPLAY_BOARDS` trees with the card's leaf
+     evaluation put in (the integer tree tensors equal), score_scan held
+     bit-equal against its plain version on that step's R = 5,120 rows
+     and timed in a CUDA graph, the trunk kernel on its 5,120 leaves held
+     within TRUNK_LIMITS and timed; the same for a 9x9 leaf-batch search
+     at K = 81 (seeded 6x64, B = 256, `LB9_SIMS` sims: the wide scan
+     kernel); then at B = 256, `OPTION_SIMS` sims on network_23: every
+     in-tree policy (learnable with seeded tree-policy weights) and
+     init_to mode, each tree's edge utility at its root and at the root's
+     most-visited child held against CPU copies (within 2e-6 relative,
+     the argmax equal where the top two lie farther apart); a seeded
+     quantized NNUE blended in (the features and both int32 accumulators
+     equal between card and CPU); each generator's root move mask (no
+     root edge or visit off the mask where it leaves a move); one SPSA
+     step of EngineTuner (`TUNE_OPENINGS` openings x 2 colours at
+     `TUNE_SIMS` sims); last `PHASE22_PROFILE_STEPS` step of the
+     leaf_batch 4 search traced, and its ms and launches per step printed
+     beside phases 7 and 8's at S = 1;
 then a `kernels` JSON line and, last, {"ok": true, "device": {...}}.
 
-A kernel's `ms` is its device time per launch: for score_scan and
-score_backup as torch.profiler traces it (score_backup's on the flagship
-tree's paths), for the trunk (2.8 ms and more a launch) by CUDA
+A kernel's `ms` is its device time per launch: for score_scan on the
+leaf-batch searches' rows (its main path) by CUDA events
+around a CUDA graph of 20 launches (torch.profiler traced none of the
+wide kernel's launches there), for score_backup as torch.profiler traces
+it (on the flagship tree's paths), for the trunk (2.8 ms and more a launch) by CUDA
 events around 20 launches back to back, where the host's time to enqueue
 them hides behind the device's work.  `call_ms`, `plain_ms` and
 `library_ms` are CUDA-event times of whole calls (median of 20), which
@@ -180,15 +206,16 @@ SIMS = 800  # flagship search
 # the 8x128 search runs 200 sims: with every search at 800 the whole run
 # passed 15 minutes, and the 8x128 path is the first to cut
 WIDE_SIMS = 200  # 8x128 search
-# the strength, loss-prover and renju searches run 100 sims (800 before the
-# self-play phases came in, 200 before the engine phase came in): with
-# self-play at 8 moves the whole run took 1005 s at 400 and 843 s at 200 on
-# an H100 80GB HBM3 (700 W) whose host ran the self-play step at half the
-# speed of another run's; at 200 with the training phase, 839 s on a slow
-# host, and the engine phase adds about 100 s
-STRENGTH_SIMS = 100  # strength (VCT leaf solver) search
-LOSS_SIMS = 100  # strength search with the loss prover
-RENJU_SIMS = 100  # renju search with the VCF leaf solver
+# the strength, loss-prover and renju searches run 50 sims (800 before the
+# self-play phases came in, 200 before the engine phase came in, 100
+# before the rest-of-search phase came in): with self-play at 8 moves the
+# whole run took 1005 s at 400 and 843 s at 200 on an H100 80GB HBM3
+# (700 W) whose host ran the self-play step at half the speed of another
+# run's; at 100 with the zoo phase, 1,052 s on a slow host, and phase 22
+# adds about a minute
+STRENGTH_SIMS = 50  # strength (VCT leaf solver) search
+LOSS_SIMS = 50  # strength search with the loss prover
+RENJU_SIMS = 50  # renju search with the VCF leaf solver
 CLUSTER_SIMS = 64  # renju search on the clustered boards, black to move
 LOSS2_CPU_BOARDS = 32  # boards of the level-2 loss proof checked on the CPU
 # self-play at the training manager's configuration (256 games, 100 sims,
@@ -525,12 +552,15 @@ def network_phase(weights, planes, tag: str) -> None:
 
 
 def search_phase(weights, tables, cfg, boards, stm, sims: int, tag: str, net_apply=None,
-                 trunk_launches=None, raw_input: bool = True):
+                 trunk_launches=None, raw_input: bool = True, **search_kw):
     """One `run_search` of `sims` simulations (through `net_apply`, by
-    default `fused_apply`) with the kernels' launch counts set to 0 just
-    before it and read just after (the trunk's must be `trunk_launches`,
-    by default sims + 1); the search's invariants; a line with sims/s and
-    launches per step.  Returns the final state and the launch counts."""
+    default `fused_apply`; `search_kw` passed on) with the kernels' launch
+    counts set to 0 just before it and read just after: backup B once a
+    step (score_backup at leaf_batch 1, score_scan through
+    score_backup_paths above it), the trunk `trunk_launches` times (by
+    default once a step and once for the roots); the search's invariants;
+    a line with sims/s and launches per step.  Returns the final state and
+    the launch counts."""
     import torch
     from alphagomoku_tpu_torch.ops import convnext_fused as CF
     from alphagomoku_tpu_torch.ops import score_scan as SSM
@@ -543,20 +573,23 @@ def search_phase(weights, tables, cfg, boards, stm, sims: int, tag: str, net_app
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state = mcts.run_search(net_apply or CF.fused_apply, weights, tables, cfg, boards, stm,
-                            sims, raw_input, device=boards.device)
+                            sims, raw_input, device=boards.device, **search_kw)
     move = mcts.select_move(state)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {"score_scan": SSM.score_scan.launches, "score_backup": SSM.score_backup.launches,
                 "fused_trunk": CF.fused_trunk.launches}
-    trunk = sims + 1 if trunk_launches is None else trunk_launches
-    if launches != {"score_scan": 0, "score_backup": sims, "fused_trunk": trunk}:
+    steps = -(-sims // cfg.leaf_batch)
+    trunk = steps + 1 if trunk_launches is None else trunk_launches
+    batched = cfg.leaf_batch > 1
+    if launches != {"score_scan": steps if batched else 0,
+                    "score_backup": 0 if batched else steps, "fused_trunk": trunk}:
         raise SystemExit(f"{tag}: the kernels were not launched once per step inside "
                          f"run_search: {launches}")
     tree = state.tree
     root_visits = tree.node_visits[:, 0]
     root_proven = S.is_proven(tree.node_score[:, 0])
-    if not bool(((root_visits == 1 + sims) | root_proven).all()):
+    if not bool(((root_visits == 1 + steps * cfg.leaf_batch) | root_proven).all()):
         raise SystemExit(f"{tag}: an unproven root does not hold 1 + sims visits")
     if int(tree.node_count.max()) > cfg.max_nodes:
         raise SystemExit(f"{tag}: node_count exceeds max_nodes")
@@ -568,8 +601,8 @@ def search_phase(weights, tables, cfg, boards, stm, sims: int, tag: str, net_app
     root = tree.node_score[:, 0]
     bsz = boards.shape[0]
     print(f"{tag}: {sims} sims x batch {bsz} in {dt:.3f} s = {bsz * sims / dt:.1f} sims/s, "
-          f"{dt / sims * 1e3:.3f} ms per simulation step; launches {launches}, "
-          f"{sum(launches.values()) / sims:.4f} of the kernels per step; "
+          f"{dt / steps * 1e3:.3f} ms per simulation step of {cfg.leaf_batch} a tree; launches "
+          f"{launches}, {sum(launches.values()) / steps:.4f} of the kernels per step; "
           f"proven roots {int(root_proven.sum())} (won {int(S.is_win(root).sum())}, lost "
           f"{int(S.is_loss(root).sum())}); node_count {int(tree.node_count.max())}; "
           f"avg depth {summary['avg_depth']:.3f}, transpositions {summary['transpositions']:.0f}, "
@@ -1860,6 +1893,398 @@ def zoo_phase(generation: dict, flagship_backup_ms: float) -> dict:
     return dict(paths=paths, step_ms=step_ms, seconds=seconds)
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the rest of search
+# ---------------------------------------------------------------------------
+
+LEAF_BATCH = 4  # descents a step under virtual loss
+LB_SIMS = 200  # the flagship at leaf_batch 4: 50 steps
+LB9_BATCH = 256  # the 9x9 leaf-batch search at K = 81 (seeded 6x64 convnext at 9x9)
+LB9_SIMS = 64  # 16 steps
+LB9_SEED = 0  # torch.Generator seed of its weights
+OPTION_BATCH = 256  # the policy, init_to, NNUE and root-mask searches
+OPTION_SIMS = 16
+UTILITY_REL = 2e-6  # tests/test_torch_search_options.py's REL
+TP_SEED = 0  # torch.Generator seeds of the tree policy's and the NNUE's weights
+NNUE_SEED = 0
+NNUE_HIDDEN = 32
+TUNE_OPENINGS = 2  # one SPSA step of EngineTuner: 2 openings x 2 colours at 4 sims
+TUNE_SIMS = 4
+PHASE22_PROFILE_STEPS = 1  # leaf_batch 4 steps traced (the profiler takes ~8 s a step there)
+EXACT_TREE = ("node_visits", "node_count", "edge_action", "edge_child", "node_score",
+              "edge_score", "node_hash", "node_complete")
+
+
+def moved_state(state, device=None, lanes=None):
+    """A copy of a SearchState, its tensors cloned (or moved to `device`),
+    of the boards `lanes` only if given (every tensor has the batch first;
+    the allocation frontier, shared by the batch, stays)."""
+    def mv(t):
+        t = t if lanes is None else t[lanes]
+        return t.clone() if device is None else t.to(device, copy=True)
+
+    return state._replace(
+        tree=type(state.tree)(*(mv(t) for t in state.tree)),
+        root_board=mv(state.root_board), root_stm=mv(state.root_stm),
+        root_node=mv(state.root_node), noisy_prior=mv(state.noisy_prior),
+        sims_done=mv(state.sims_done), stats=type(state.stats)(*(mv(t) for t in state.stats)))
+
+
+REPLAY_BOARDS = 160  # boards of a step replayed on the CPU (its cost is the leaves' features)
+
+
+def replay_step(weights, tables, cfg, state, tag: str) -> dict:
+    """One more step of `state`'s search on the card, with the rows its
+    backup hands to score_scan captured and its leaf evaluation recorded;
+    the same step on a CPU copy of the first REPLAY_BOARDS boards (the
+    trees of a step are independent but for the shared frontier, which
+    the copy keeps), the card's evaluation of their leaves put in and
+    their features recomputed on the CPU and held equal, so that the
+    CPU's descents, expansion, dedup, allocation, links and both backups
+    run on the same numbers: their integer tree tensors must equal the
+    card's.  Returns the captured rows and the evaluated planes (on the
+    card)."""
+    import torch
+    from alphagomoku_tpu_torch.ops import convnext_fused as CF
+    from alphagomoku_tpu_torch.ops import score_scan as SSM
+    from alphagomoku_tpu_torch.patterns import features as FEAT
+    from alphagomoku_tpu_torch.search import mcts
+
+    bsz = state.tree.batch
+    n = min(bsz, REPLAY_BOARDS)
+    lanes = torch.arange(n, device=state.root_board.device)
+    card, cpu = moved_state(state), moved_state(state, "cpu", lanes)
+    # the replayed boards' leaves in the step's sub-major order
+    leaves = (torch.arange(cfg.leaf_batch)[:, None] * bsz + torch.arange(n)[None]).flatten()
+    got: dict = {}
+    scan, evaluate = SSM.score_scan, mcts._evaluate
+
+    def capture_scan(*rows):
+        got["rows"] = [r.clone() for r in rows]
+        return scan(*rows)
+
+    capture_scan.launches = 0
+
+    def record_evaluate(net_apply, variables, tables_, board, stm, raw_input, sym=None):
+        out = evaluate(net_apply, variables, tables_, board, stm, raw_input, sym)
+        got["board"] = board[leaves.to(board.device)].cpu()
+        got["out"] = [t[leaves.to(t.device)].cpu() for t in out]
+        return out
+
+    def recording_apply(variables, planes):
+        got["planes"] = planes.clone()
+        return CF.fused_apply(variables, planes)
+
+    def card_evaluate(net_apply, variables, tables_, board, stm, raw_input, sym=None):
+        if not torch.equal(board, got["board"]):
+            raise SystemExit(f"{tag}: the CPU replay reached other leaves than the card")
+        if not torch.equal(FEAT.encode(tables_, board, stm), got["out"][5]):
+            raise SystemExit(f"{tag}: the leaves' features differ between the card and the CPU")
+        return tuple(got["out"])
+
+    try:
+        SSM.score_scan, mcts._evaluate = capture_scan, record_evaluate
+        with torch.no_grad():
+            card = mcts.make_simulate_fn(recording_apply, tables, cfg)(weights, card)
+        torch.cuda.synchronize()
+        SSM.score_scan, mcts._evaluate = scan, card_evaluate
+        with torch.no_grad():
+            cpu = mcts.make_simulate_fn(None, tables, cfg)(None, cpu)
+    finally:
+        SSM.score_scan, mcts._evaluate = scan, evaluate
+    differ = [k for k in EXACT_TREE if not torch.equal(getattr(card.tree, k)[:n].cpu(),
+                                                        getattr(cpu.tree, k))]
+    if differ:
+        raise SystemExit(f"{tag}: the step replayed on the CPU leaves other trees: {differ}")
+    vs = (card.tree.node_value_sum[:n].cpu() - cpu.tree.node_value_sum).abs().max()
+    print(f"{tag}: one step replayed on CPU copies of {n} of the {bsz} trees: the integer tree "
+          f"tensors equal ({', '.join(EXACT_TREE)}); node_value_sum max |card - CPU| "
+          f"{float(vs):.3g}", flush=True)
+    return got
+
+
+def graph_ms(fn, launches: int = 20) -> float:
+    """Device milliseconds per call of `fn` (one kernel launch), by CUDA
+    events around the replay of a CUDA graph of `launches` calls: the
+    host's time to enqueue them does not count.  For kernels of a few
+    microseconds late in the run, where torch.profiler has traced none of
+    their launches (phase 22's wide scan kernel)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return time_cuda(graph.replay) / launches
+
+
+def scan_rows_phase(rows, tag: str) -> dict:
+    """score_scan against score_scan_plain on a search's captured rows,
+    bit-equal, with its device time (a CUDA graph's replay, `graph_ms`),
+    call and plain times and its bytes bound (as phase 3 counts them)."""
+    import torch
+    from alphagomoku_tpu_torch.ops import score_scan as SSM
+
+    R, D = rows[1].shape
+    K = rows[3].shape[2]
+    e_k, ns_k = SSM.score_scan(*rows)
+    e_p, ns_p = SSM.score_scan_plain(*rows)
+    torch.cuda.synchronize()
+    if not (torch.equal(e_k, e_p) and torch.equal(ns_k, ns_p)):
+        raise SystemExit(f"{tag}: score_scan disagrees with the plain version on the rows")
+    changed = int((e_p != rows[3].gather(2, rows[2].long()[..., None])[..., 0])[rows[1]].sum())
+    kernel = "score_scan_wide_kernel" if K > 32 else "score_scan_kernel"
+    ms = graph_ms(lambda: SSM.score_scan(*rows))
+    call_ms = time_cuda(lambda: SSM.score_scan(*rows))
+    plain_ms = time_cuda(lambda: SSM.score_scan_plain(*rows), reps=5)
+    nbytes = 2 * (R + R * D * K + 3 * R * D) + (R * D * K + 3 * R * D)
+    bound_ms = nbytes / HBM_BPS * 1e3
+    print(f"{tag}: {kernel} bit-equal on the step's rows R={R} D={D} K={K} "
+          f"({int(rows[1].sum())} valid levels, {changed} edge scores changed); kernel "
+          f"{ms:.5f} ms on the device in a CUDA graph ({call_ms:.4f} ms a call), plain "
+          f"{plain_ms:.4f} ms, bound "
+          f"{bound_ms:.5f} ms ({nbytes} bytes at u16 scores)", flush=True)
+    return dict(shape=f"R={R} D={D} K={K}", ms=ms, ms_by="cuda graph", call_ms=call_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, valid_levels=int(rows[1].sum()))
+
+
+def utility_card_vs_cpu(state, cfg, tp, tag: str) -> float:
+    """Each tree's edge utility at its root and at the root's most-visited
+    child, with random virtual visits, on the card and on CPU copies of
+    the tree: within UTILITY_REL, the same infinities, and the same argmax
+    wherever the top two lie farther apart.  Returns the largest relative
+    gap."""
+    import torch
+    from alphagomoku_tpu_torch.search import mcts
+
+    tree = state.tree
+    bsz, K = tree.batch, cfg.max_edges
+    dev = tree.node_visits.device
+    b = torch.arange(bsz, device=dev)
+    root = state.root_node
+    visits = mcts.edge_stats(tree, b, root).visits
+    child = tree.edge_child[b, root, visits.argmax(-1)].long()
+    child = torch.where(child >= 0, child, root)
+    cpu_tree = type(tree)(*(t.cpu() for t in tree))
+    cpu_tp = None if tp is None else tp.to("cpu")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    worst = 0.0
+    for node, prior in ((root, state.noisy_prior),
+                        (child, tree.edge_prior[b, child].float())):
+        for vl in (None, torch.randint(0, 3, (bsz, K), generator=gen, device=dev,
+                                       dtype=torch.int32)):
+            is_root = node == root
+            args = (node, prior, vl, is_root)
+            card = mcts._edge_utility(tree, cfg, *args, tp, mcts.pack_node_stats(tree)).cpu()
+            cpu = mcts._edge_utility(cpu_tree, cfg, *(None if a is None else a.cpu()
+                                                      for a in args), cpu_tp,
+                                     mcts.pack_node_stats(cpu_tree))
+            fin = torch.isfinite(cpu)
+            if not torch.equal(fin, torch.isfinite(card)):
+                raise SystemExit(f"{tag}: the card's utility has other infinities than the CPU's")
+            gap = ((card - cpu).abs() / (cpu.abs() + 1.0))[fin]
+            worst = max(worst, float(gap.max()) if gap.numel() else 0.0)
+            if not torch.allclose(card[fin], cpu[fin], rtol=UTILITY_REL, atol=UTILITY_REL):
+                raise SystemExit(f"{tag}: the card's utility is {worst:.3g} from the CPU's")
+            top2 = torch.where(fin, cpu, float("-inf")).topk(2, -1).values
+            clear = (top2[:, 0] - top2[:, 1]) > UTILITY_REL * top2[:, 0].abs() + UTILITY_REL
+            if not torch.equal(card.argmax(-1)[clear], cpu.argmax(-1)[clear]):
+                raise SystemExit(f"{tag}: the card's argmax differs where the top two are apart")
+    return worst
+
+
+def rest_of_search_phase(weights, tables, boards, stm) -> dict:
+    """Phase 22, parts 1-2: the flagship at leaf_batch 4 and the
+    9x9 leaf-batch search at K = 81, each with a step replayed on the CPU
+    and score_scan held and timed on that step's rows; the trunk kernel
+    timed on the 5,120 leaves of a step."""
+    import numpy as np
+    import torch
+    from alphagomoku_tpu_torch.models.networks import create_network, init_random_
+    from alphagomoku_tpu_torch.ops import convnext_fused as CF
+    from alphagomoku_tpu_torch.search import mcts
+
+    t_phase = time.perf_counter()
+    dev = boards.device
+    out: dict = {"paths": {}}
+    # 1. the flagship at leaf_batch 4
+    cfg = mcts.MCTSConfig(max_nodes=808, max_edges=32, max_depth=16, leaf_batch=LEAF_BATCH)
+    t0 = time.perf_counter()
+    state, out["paths"]["leaf_batch"] = search_phase(weights, tables, cfg, boards, stm, LB_SIMS,
+                                                     "phase 22 leaf_batch 4")
+    out["step_ms"] = (time.perf_counter() - t0) / (LB_SIMS // LEAF_BATCH) * 1e3
+    got = replay_step(weights, tables, cfg, state, "phase 22 leaf_batch 4")
+    out["scan"] = scan_rows_phase(got["rows"], "phase 22 leaf_batch 4 score_scan")
+    # the trunk kernel on the step's S * B leaves
+    with torch.no_grad():
+        x = weights.net.stem_forward(got["planes"]).permute(0, 2, 3, 1).contiguous()
+        plain = CF.fused_trunk_plain(x, weights.trunk)
+        trunk = held(plain, CF.fused_trunk(x, weights.trunk), CF.TRUNK_LIMITS)
+        if not trunk["ok"]:
+            raise SystemExit(f"phase 22: the trunk kernel disagrees at N={x.shape[0]}: {trunk}")
+        trunk_ms = time_cuda(lambda: [CF.fused_trunk(x, weights.trunk) for _ in range(5)],
+                             reps=3) / 5
+    L, (N, h, w, C) = weights.trunk.dw.shape[0], x.shape
+    ops_ms = (2.0 * 49 * h * w * C * N * L / F32_FLOPS
+              + (2.0 * 2 * h * w * C * C + 2.0 * 2 * C * C) * N * L / BF16_TC_FLOPS) * 1e3
+    out["trunk"] = dict(shape=f"N={N}", ms=trunk_ms, bound_ms=ops_ms,
+                        share_differ=trunk["share_differ"])
+    print(f"phase 22 trunk: the kernel on the step's {N} leaves {trunk_ms:.4f} ms on the device, "
+          f"bound {ops_ms:.4f} ms (operations); against the plain trunk {describe(trunk)}",
+          flush=True)
+    out["state"] = state
+    del x, plain, got
+    # 2. 9x9 at K = 81 edge slots: the wide scan kernel
+    net9 = init_random_(create_network("ConvNextPVQMraw", blocks=6, filters=64, rows=9, cols=9),
+                        torch.Generator().manual_seed(LB9_SEED)).to(dev).eval()
+    w9 = CF.pack_weights(net9)
+    # the bench generator's 2-7 alternating stones, on 9x9
+    rng = np.random.default_rng(9)
+    b9 = np.zeros((LB9_BATCH, 9, 9), np.int8)
+    for i in range(LB9_BATCH):
+        n = rng.integers(2, 8)
+        b9[i].flat[rng.choice(81, size=n, replace=False)] = np.where(np.arange(n) % 2 == 0, 1, 2)
+    b9 = torch.from_numpy(b9).to(dev)
+    s9 = torch.ones(LB9_BATCH, dtype=torch.int8, device=dev)
+    cfg9 = mcts.MCTSConfig(max_nodes=LB9_SIMS + 8, max_edges=81, max_depth=16,
+                           leaf_batch=LEAF_BATCH)
+    state9, out["paths"]["leaf_batch_k81"] = search_phase(w9, tables, cfg9, b9, s9, LB9_SIMS,
+                                                         "phase 22 9x9 K=81 leaf_batch 4")
+    got9 = replay_step(w9, tables, cfg9, state9, "phase 22 9x9 K=81 leaf_batch 4")
+    out["scan_wide"] = scan_rows_phase(got9["rows"], "phase 22 9x9 K=81 score_scan")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def search_options_phase(weights, tables, boards, stm) -> dict:
+    """Phase 22, parts 3-6: every policy and init_to mode, a seeded
+    quantized NNUE blended in, each generator's root move mask, and one
+    SPSA step of EngineTuner, all on network_23 at B = OPTION_BATCH."""
+    import numpy as np
+    import torch
+    from alphagomoku_tpu_torch.eval.tuner import EngineTuner
+    from alphagomoku_tpu_torch.models import nnue
+    from alphagomoku_tpu_torch.ops import convnext_fused as CF
+    from alphagomoku_tpu_torch.ops import score_scan as SSM
+    from alphagomoku_tpu_torch.patterns import features as FEAT
+    from alphagomoku_tpu_torch.search import generators as GEN
+    from alphagomoku_tpu_torch.search import mcts, static_solver
+    from alphagomoku_tpu_torch.search import tree_policy as TP
+
+    t_phase = time.perf_counter()
+    dev = boards.device
+    bsz = OPTION_BATCH
+    boards, stm = boards[:bsz].clone(), stm[:bsz]
+    base = mcts.MCTSConfig(max_nodes=OPTION_SIMS + 8, max_edges=32, max_depth=16)
+    tp = TP.init_params(torch.Generator().manual_seed(TP_SEED), device=dev)
+    paths, step_ms, gaps = {}, {}, {}
+
+    def run(tag, cfg, b=boards, **kw):
+        t0 = time.perf_counter()
+        state, paths[tag] = search_phase(weights, tables, cfg, b, stm, OPTION_SIMS,
+                                         f"phase 22 {tag}", **kw)
+        step_ms[tag] = (time.perf_counter() - t0) / OPTION_SIMS * 1e3
+        return state
+
+    # 3. every policy and init_to mode
+    cases = [(p, "parent") for p in mcts.POLICIES] + [("puct", m) for m in ("loss", "draw",
+                                                                             "q_head")]
+    for policy, init_to in cases:
+        tag = f"policy_{policy}" if init_to == "parent" else f"init_{init_to}"
+        cfg = base._replace(policy=policy, init_to=init_to)
+        ptp = tp if policy == "learnable" else None
+        state = run(tag, cfg, tp_params=ptp)
+        gaps[tag] = utility_card_vs_cpu(state, cfg, ptp, f"phase 22 {tag}")
+        if tag == "policy_puct":
+            plain_values = mcts.root_value(state)
+    print("phase 22 policies: ms per step at B=" + str(bsz) + " " + json.dumps(
+        {k: round(v, 2) for k, v in step_ms.items()}) + "; the card's utilities (roots and "
+        "most-visited children, with and without virtual visits) within " + str(UTILITY_REL)
+        + " relative of the CPU's, largest gap " + json.dumps(
+        {k: float(f"{v:.3g}") for k, v in gaps.items()}), flush=True)
+
+    # 4. a seeded quantized NNUE blended in
+    model = nnue.NNUEModel(nnue.num_features(H, W), NNUE_HIDDEN,
+                           torch.Generator().manual_seed(NNUE_SEED))
+    q = nnue.quantize(model).to(dev)
+    state = run("nnue", base, nnue=q)
+    shift = float((mcts.root_value(state) - plain_values).abs().max())
+    feats = nnue.nnue_features(tables, boards, stm)
+    feats_cpu = nnue.nnue_features(tables, boards.cpu(), stm.cpu())
+    if not torch.equal(feats.cpu(), feats_cpu):
+        raise SystemExit("phase 22 nnue: the card's features differ from the CPU's")
+    card = nnue.quantized_accumulators(q, feats)
+    cpu = nnue.quantized_accumulators(nnue.quantize(model), feats_cpu)
+    if not (torch.equal(card[0].cpu(), cpu[0]) and torch.equal(card[1].cpu(), cpu[1])):
+        raise SystemExit("phase 22 nnue: the int32 accumulators differ between card and CPU")
+    tail = float(((card[2].cpu() - cpu[2]).abs() / (cpu[2].abs() + 1.0)).max())
+    if shift == 0.0:
+        raise SystemExit("phase 22 nnue: the blend left every root value as it was")
+    print(f"phase 22 nnue: F={feats.shape[1]} features, hidden {NNUE_HIDDEN}; features and both "
+          f"int32 accumulators equal between card and CPU (largest |acc| "
+          f"{int(card[0].abs().max())}), logits {tail:.3g} apart relative; the blend moved root "
+          f"values by up to {shift:.4f}", flush=True)
+
+    # 5. each generator's root move mask
+    sym_boards = boards.clone()
+    sym_boards[:32] = 0
+    sym_boards[16:32, H // 2, W // 2] = 1  # symmetric roots: empty, and a centre stone
+    masks = {"center_excluding": (GEN.center_excluding_mask(bsz, H, W, 2, dev), boards),
+             "center_only": (GEN.center_only_mask(bsz, H, W, 2, dev), boards),
+             "symmetrical_excluding": (GEN.symmetrical_excluding_mask(sym_boards), sym_boards)}
+    rb = torch.arange(bsz, device=dev)
+    for name, (mask, b) in masks.items():
+        state = run(f"mask_{name}", base, b, root_move_mask=mask)
+        packed = FEAT.encode(tables, b, stm)
+        legal = ((packed & 1) == 1) & ~(((packed >> 6) & 1) == 1)
+        restrict = static_solver.analyze(packed, legal,
+                                         H * W - (b != 0).sum((1, 2)).int()).restrict
+        kept = (restrict & mask).flatten(1).any(-1)  # boards where the mask leaves a move
+        actions = state.tree.edge_action[:, 0].long()
+        visits = mcts.edge_stats(state.tree, rb, state.root_node).visits
+        outside = ~mask.flatten(1).gather(1, actions.clamp(min=0)) & kept[:, None]
+        bad = ((actions >= 0) & outside).any(-1) | ((visits > 0) & outside).any(-1)
+        if bool(bad.any()):
+            raise SystemExit(f"phase 22 mask_{name}: {int(bad.sum())} roots expanded or visited a "
+                             f"cell the mask excludes")
+        print(f"phase 22 mask_{name}: {int(mask[0].sum())} of {H * W} cells allowed on the first "
+              f"board; every root edge and visit on an allowed cell on {int(kept.sum())} boards "
+              f"(the other {int((~kept).sum())} keep their restriction: the mask left no move)",
+              flush=True)
+
+    # 6. one SPSA step of EngineTuner
+    tcfg = mcts.MCTSConfig(max_nodes=TUNE_SIMS + 8, max_edges=32, max_depth=16,
+                           policy="puct_fpu")
+    tuner = EngineTuner(CF.fused_apply, weights, tables, tcfg, num_simulations=TUNE_SIMS,
+                        games_per_step=2 * TUNE_OPENINGS, device=dev)
+    grads = []
+    inner = tuner.spsa.gradient_func
+    tuner.spsa.gradient_func = lambda tp_, tm_: grads.append(inner(tp_, tm_)) or grads[-1]
+    SSM.score_scan.launches = SSM.score_backup.launches = CF.fused_trunk.launches = 0
+    t0 = time.perf_counter()
+    tuned = tuner.tune(1)
+    tune_s = time.perf_counter() - t0
+    paths["tuner"] = {"score_scan": SSM.score_scan.launches,
+                      "score_backup": SSM.score_backup.launches,
+                      "fused_trunk": CF.fused_trunk.launches}
+    theta = np.asarray(tuner.spsa.theta)
+    if not (tuner.spsa.step == 1 and -0.5 <= grads[0] <= 0.5 and ((0 <= theta) & (theta <= 1)).all()
+            and paths["tuner"]["score_backup"] > 0):
+        raise SystemExit(f"phase 22 tuner: {tuner.spsa.step} steps, gradient {grads}, theta "
+                         f"{theta}, launches {paths['tuner']}")
+    print(f"phase 22 tuner: one SPSA step ({2 * TUNE_OPENINGS} games at {TUNE_SIMS} sims) in "
+          f"{tune_s:.1f} s, gradient {grads[0]:+.4f}, theta {theta.round(4).tolist()}, tuned "
+          + json.dumps({p.name: round(getattr(tuned, p.name), 4) for p in tuner.params})
+          + f"; launches {paths['tuner']}", flush=True)
+    return dict(paths=paths, step_ms=step_ms, gaps=gaps, tune_seconds=tune_s,
+                seconds=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     import torch
 
@@ -1966,7 +2391,9 @@ def main() -> int:
 
     # 7. search at the bench configuration, and score_backup on its tree
     cfg = mcts.MCTSConfig(max_nodes=808, max_edges=32, max_depth=16)
+    t0 = time.perf_counter()
     state, launches = search_phase(weights, tables, cfg, boards, stm, SIMS, "search")
+    flagship_step_ms = (time.perf_counter() - t0) / SIMS * 1e3
     paths = {"flagship": launches}
     tree = state.tree
     pn, ps, leaf_score = most_visited_paths(tree, cfg.max_depth)
@@ -1994,10 +2421,36 @@ def main() -> int:
     paths["engine"] = engine["launches"]
     kernels[-1].update(engine["score_backup"])
 
+    # 22. the rest of search: the flagship at leaf_batch 4 and a 9x9
+    # leaf-batch search at K = 81, then every policy and init_to mode, the
+    # NNUE blend, the root move masks and one SPSA step; last the
+    # leaf_batch 4 steps traced
+    rest = rest_of_search_phase(weights, tables, boards, stm)
+    options = search_options_phase(weights, tables, boards, stm)
+    paths.update(rest["paths"])
+    paths.update(options["paths"])
+    t0 = time.perf_counter()
+    simulate = mcts.make_simulate_fn(CF.fused_apply, tables, cfg._replace(leaf_batch=LEAF_BATCH))
+    prof4 = profile_steps(simulate, weights, rest.pop("state"), PHASE22_PROFILE_STEPS)
+    print(prof4.replace("profile:", "profile leaf_batch 4:"), flush=True)
+    phase22_s = rest["seconds"] + options["seconds"] + time.perf_counter() - t0
+    print(f"phase 22: {phase22_s:.1f} s by its own clock (leaf-batch searches "
+          f"{rest['seconds']:.1f} s, options {options['seconds']:.1f} s, of it the SPSA step "
+          f"{options['tune_seconds']:.1f} s)", flush=True)
+    del simulate
+
     # 8. profile: the next steps of the same search, traced
     simulate = mcts.make_simulate_fn(CF.fused_apply, tables, cfg)
-    print(profile_steps(simulate, weights, state, PROFILE_STEPS), flush=True)
+    prof1 = profile_steps(simulate, weights, state, PROFILE_STEPS)
+    print(prof1, flush=True)
     del state, simulate
+    s1, s4 = (json.loads(p.split(":", 1)[1]) for p in (prof1, prof4))
+    print(f"phase 22 leaf_batch {LEAF_BATCH} against 1 (the flagship, B={BATCH}): "
+          f"{rest['step_ms']:.3f} against {flagship_step_ms:.3f} ms per step "
+          f"({rest['step_ms'] / LEAF_BATCH:.3f} against {flagship_step_ms:.3f} ms per simulation "
+          f"a tree), {s4['kernel_launches_per_step']:.1f} against "
+          f"{s1['kernel_launches_per_step']:.1f} launches per traced step, device busy "
+          f"{s4['device_busy_share']:.3f} against {s1['device_busy_share']:.3f} of it", flush=True)
 
     # 9-10. the trunk and the network at C = 128 (8x128, seeded weights)
     wide_net = init_random_(create_network("ConvNextPVQMraw", blocks=8, filters=128),
@@ -2085,6 +2538,7 @@ def main() -> int:
                        "128": dict(trunk128, launches=paths["8x128"]["fused_trunk"])}
     trunk.update(trained)
     trunk["engine_b1"] = engine["fused_trunk"]
+    trunk["leaf_batch"] = rest["trunk"]
     kernels.append(trunk)
     top = "K=81 D=16"  # the wide entries' headline shape: the selfcheck's K
     for name in ("score_scan", "score_backup"):
@@ -2093,13 +2547,24 @@ def main() -> int:
             replaces="alphagomoku_tpu/ops/score_scan.py:111", status="bit-equal", max_abs_err=0.0,
             bound_by="bytes", library_ms=None, shape=top, **wide["entries"][name][top],
             shapes=wide["entries"][name], **wide["occupancy"][name]))
-    # the selfcheck's search is the one path at K > 32
+    # score_scan's headline is the leaf-batch search's rows, where backup B
+    # launches it; phase 3's random rows and phase 21's shapes stay beside
+    timing = ("shape", "ms", "call_ms", "plain_ms", "bound_ms")
+    for name, rows in (("score_scan", rest["scan"]), ("score_scan_wide", rest["scan_wide"])):
+        k = next(k for k in kernels if k["name"] == name)
+        k["random_rows"] = {t: k[t] for t in timing if t in k}
+        k.update(rows)
+    # the paths at K > 32: the selfcheck's search and the 9x9 leaf-batch one
+    wide_paths = ("selfcheck", "leaf_batch_k81")
+    main_path = {"score_scan": "leaf_batch", "score_backup": "flagship",
+                 "fused_trunk": "flagship", "score_scan_wide": "leaf_batch_k81",
+                 "score_backup_wide": "selfcheck"}
     for k in kernels:
         wrapper = k["name"].removesuffix("_wide")
         wide_kernel = wrapper != k["name"]
-        k["launches"] = paths["selfcheck" if wide_kernel else "flagship"][wrapper]
+        k["launches"] = paths[main_path[k["name"]]][wrapper]
         k["launches_by_path"] = {p: n[wrapper] for p, n in paths.items()
-                                 if (p == "selfcheck") == wide_kernel}
+                                 if (p in wide_paths) == wide_kernel}
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

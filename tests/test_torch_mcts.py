@@ -156,15 +156,19 @@ def test_stub_search_matches_jax_freestyle():
 
 
 def test_unported_config_raises():
-    """Options outside the ported slice raise naming ROADMAP.md item 10:
-    another policy, leaf_batch > 1; and a trunk width the kernel has no
-    layout for.  The VCF and VCT leaf solvers, the loss prover, symmetry
-    averaging and root noise run."""
+    """No search option of the JAX package is left unported: a policy or
+    `init_to` name that no selector has raises ValueError, and another
+    policy, leaf_batch > 1, symmetry averaging, the VCF and VCT leaf
+    solvers with the loss prover and root noise run; a trunk width the
+    kernel has no layout for raises naming ROADMAP.md."""
     boards, stm = boards_and_stm()
     tables = TV.device_tables(GameRules.FREESTYLE)
-    for cfg in (TORCH_CFG._replace(policy="ucb"), TORCH_CFG._replace(leaf_batch=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
+    for cfg in (TORCH_CFG._replace(policy="uct"), TORCH_CFG._replace(init_to="zero")):
+        with pytest.raises(ValueError, match="is not one of"):
             TM.run_search(torch_stub, None, tables, cfg, boards, stm, 1, device="cpu")
+    for cfg in (TORCH_CFG._replace(policy="ucb"), TORCH_CFG._replace(leaf_batch=2)):
+        state = TM.run_search(torch_stub, None, tables, cfg, boards, stm, 2, device="cpu")
+        assert bool((state.sims_done == 2).all())
     TM.run_search(torch_stub, None, tables, TORCH_CFG._replace(symmetry_averaging=True), boards,
                   stm, 1, device="cpu")
     for solver in ("vct", "vcf"):

@@ -110,17 +110,20 @@ def test_outcome_after_matches_jax(rules):
 
 
 def test_renju_unported_search_options_raise():
-    """Under renju, the search options of ROADMAP.md item 10 still
-    unported (another policy, leaf_batch > 1) raise NotImplementedError
-    naming the item."""
+    """Under renju, the search options of ROADMAP.md item 10 are ported:
+    another policy and leaf_batch > 1 run, and only a policy name that no
+    selector has raises (ValueError)."""
     from alphagomoku_tpu_torch.search import mcts as TM
     from tests.test_torch_mcts import TORCH_CFG, boards_and_stm, torch_stub
 
     tables = TV.device_tables(GameRules.RENJU)
     boards, stm = boards_and_stm()
     for cfg in (TORCH_CFG._replace(policy="ucb"), TORCH_CFG._replace(leaf_batch=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
-            TM.run_search(torch_stub, None, tables, cfg, boards, stm, 1, device="cpu")
+        state = TM.run_search(torch_stub, None, tables, cfg, boards, stm, 2, device="cpu")
+        assert bool((state.sims_done == 2).all())
+    with pytest.raises(ValueError, match="is not one of"):
+        TM.run_search(torch_stub, None, tables, TORCH_CFG._replace(policy="uct"), boards, stm,
+                      1, device="cpu")
 
 
 def test_renju_tables_build_and_search_runs():

@@ -30,6 +30,8 @@ from tests import test_torch_vct as vct_tests
 from tests import test_torch_vcf as vcf_tests
 from tests import test_torch_zoo as zoo_tests
 from tests import test_torch_selfcheck as selfcheck_tests
+from tests import test_torch_search_options as options_tests
+from tests import test_torch_tuner as tuner_tests
 
 CASES = {
     "stub_search_standard": lambda: mcts_tests.jax_stub_search(GameRules.STANDARD),
@@ -76,4 +78,7 @@ CASES = {
     "host_vct": host_rules_tests.jax_host_vct,
     "zoo_train_steps": zoo_tests.jax_zoo_train_steps,
     "selfcheck_search": selfcheck_tests.jax_selfcheck_search,
+    **{name: (lambda name=name: options_tests.jax_options_search(name))
+       for name in options_tests.CASES},
+    "tuner_step": tuner_tests.jax_tuner_step,
 }
