@@ -9,8 +9,8 @@ back out through the protocol formatters.
 
 Port of the reference package's `engine/manager.py`: the same options,
 defaults and search modes; the engine (`engine.Engine`) runs on `device`,
-the card unless the caller asks for the CPU.  `--selfcheck` is not ported
-yet (ROADMAP.md items 11 and 14)."""
+the card unless the caller asks for the CPU.  `--selfcheck` runs the
+environment checks of `utils/selfcheck.py`."""
 
 from __future__ import annotations
 

@@ -86,7 +86,7 @@ def _score_pairs(
     outcomes (truncation adjudication); `exclude` [2G] drops the whole
     pair from the score when either of its games is flagged (used when the
     opponent cannot adjudicate).  With no pair left the score is 0.5, as
-    in the reference package (ROADMAP.md item 13)."""
+    in the reference package (ROADMAP.md §3, behaviours kept)."""
 
     def points(outcome: int, a_sign: int) -> int:
         """A's points in one game (reference: GSPRT.cpp get_points)."""

@@ -28,6 +28,7 @@ Parameter and buffer names follow the flax module tree so that
 from __future__ import annotations
 
 import math
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
@@ -48,7 +49,15 @@ class BatchNorm(nn.Module):
     every dimension but 1: the mean and the fast, biased variance
     E[x^2] - E[x]^2 clipped at 0, as flax computes them; the running
     averages move as `ra = 0.99 ra + 0.01 stat` (not `F.batch_norm`'s
-    momentum 0.1 and unbiased variance)."""
+    momentum 0.1 and unbiased variance).
+
+    Under data parallelism the batch is the global one: `sync_moments`,
+    when set (by `parallel.distributed.make_dp_train_step`, for one step),
+    maps the local batch's mean and E[x^2] to the global batch's through a
+    differentiable all-reduce, so that every rank normalizes and moves its
+    running averages alike."""
+
+    sync_moments: Callable[[torch.Tensor, torch.Tensor], tuple] | None = None
 
     def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.99,
                  dtype: torch.dtype = BF16):
@@ -72,7 +81,10 @@ class BatchNorm(nn.Module):
         xf = x.float()
         dims = [d for d in range(x.dim()) if d != 1]
         mean = xf.mean(dims)
-        var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+        sq = (xf * xf).mean(dims)
+        if BatchNorm.sync_moments is not None:
+            mean, sq = BatchNorm.sync_moments(mean, sq)
+        var = torch.clamp(sq - mean * mean, min=0.0)
         with torch.no_grad():
             keep = self.momentum
             self.running_mean.copy_(keep * self.running_mean + (1.0 - keep) * mean)

@@ -156,8 +156,8 @@ def fused_trunk(x: torch.Tensor, w: TrunkWeights) -> torch.Tensor:
     if smem > SM90_SMEM_OPTIN:
         raise NotImplementedError(
             f"fused_trunk kernel at C={c} on {h}x{wd} boards needs {smem} bytes of shared "
-            f"memory per block, the card allows {SM90_SMEM_OPTIN} (ROADMAP.md, item 8: the "
-            "trunk kernel at C = 128 on 20x20 boards)"
+            f"memory per block, the card allows {SM90_SMEM_OPTIN} (ROADMAP.md, 'TPU kernels "
+            "to port', entry 2: the trunk at C = 128 on 20x20 boards)"
         )
     if x.device.type != "cuda":
         raise ValueError(f"fused_trunk: unsupported device {x.device}")

@@ -24,8 +24,9 @@ CUDA tensors and on their plain versions for CPU tensors:
   a workaround for the TPU's lack of per-row gathers; updating the tree
   in place is the port's choice (a search owns its tree), and one launch
   replaces the gathers, the scan and the two `index_put_`s.  It takes one
-  path per board (`leaf_batch = 1`); more paths per board need the claim
-  dedup of the JAX backup first (ROADMAP.md, item 10).
+  path per board (`leaf_batch = 1`); `score_backup_paths` takes several
+  paths per board (`leaf_batch > 1`): one `score_scan` launch over their
+  rows, then the JAX backup's claim dedup.
 
 Both take any K, as the Pallas kernel does: K <= 32 edge slots run the
 staged kernels (one lane a slot), K > 32 the wide kernels (each lane a

@@ -111,6 +111,13 @@ def pattern_table(rules: GameRules, device: torch.device,
     return (cross | (circle << 4)).to(torch.int32)
 
 
+def classify_packed(windows: torch.Tensor, rules: GameRules) -> torch.Tensor:
+    """The nibble-packed form of `classify`, as the pattern table encodes
+    it: cross | circle << 4, in int64 (the reference package's uint32)."""
+    cross, circle = classify(windows, rules)
+    return (cross | (circle << 4)).to(torch.int64)
+
+
 def classify_by_table(
     windows: torch.Tensor, rules: GameRules, kinds: tuple[str, ...] | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:

@@ -7,7 +7,8 @@ A copy of the rule definitions of the reference package's
 8^4-entry threat table (`_threat_of`, `_build_threat_table`), built in
 memory, and the open-three promotion data of the renju forbidden check
 (`_PROMO_*`), with the host helpers of the exact single-position code
-(`open_three_promotion_moves`, `narrow_down`, `expand`, `get_tables`).  The
+(`open_three_promotion_moves`, `narrow_down`, `expand`, `get_tables`,
+`get_pattern_table`, `get_threat_table`).  The
 port classifies windows with bit math compiled from these rules
 (`patterns/bitwise.py`, which also builds the 4^10 pattern table from that
 bit math; `get_tables` hands it to the host code as numpy), so the
@@ -351,3 +352,11 @@ def get_tables(rules: GameRules) -> tuple[np.ndarray, np.ndarray]:
     pattern = bitwise.pattern_table(rules, torch.device("cpu")).numpy().astype(np.uint8)
     pattern.flags.writeable = False
     return pattern, _build_threat_table(rules)
+
+
+def get_pattern_table(rules: GameRules) -> np.ndarray:
+    return get_tables(rules)[0]
+
+
+def get_threat_table(rules: GameRules) -> np.ndarray:
+    return get_tables(rules)[1]

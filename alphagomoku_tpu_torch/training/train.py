@@ -180,10 +180,36 @@ def draw_modes(generator: torch.Generator, batch: int, rows: int, cols: int) -> 
 _NEG = -1e9  # masked logit: a target of 0 on an illegal cell contributes 0
 
 
+class DataParallel(NamedTuple):
+    """A data-parallel step's view of its process group, set in `_DP` by
+    `parallel.distributed.make_dp_train_step` for the length of one step:
+    each rank holds a slice of the global batch, and the step computes
+    what one process computes on the whole of it."""
+
+    all_reduce: Callable[[torch.Tensor], torch.Tensor]  # sum over the group
+    share: float  # this rank's samples over the global batch's
+
+
+_DP: DataParallel | None = None
+
+
+def _global_sum(x: torch.Tensor) -> torch.Tensor:
+    """A local sum (a loss denominator) as the global batch's."""
+    return x if _DP is None else _DP.all_reduce(x)
+
+
+def _batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean over the batch of per-sample values: this rank's part of
+    the global batch's mean under data parallelism."""
+    return x.mean() if _DP is None else x.mean() * _DP.share
+
+
 def _losses(out: NetOutput, batch: dict, cfg: TrainConfig, legal: torch.Tensor):
-    """Per-head scalar losses over valid samples: (total, parts)."""
+    """Per-head scalar losses over valid samples: (total, parts).  Under
+    data parallelism the denominators are the global batch's, so the
+    ranks' losses sum to the global batch's loss."""
     valid = batch["valid"].float()
-    denom = valid.sum().clamp(min=1.0)
+    denom = _global_sum(valid.sum()).clamp(min=1.0)
     bsz = valid.shape[0]
     hw = out.policy_logits.shape[1] * out.policy_logits.shape[2]
 
@@ -203,7 +229,7 @@ def _losses(out: NetOutput, batch: dict, cfg: TrainConfig, legal: torch.Tensor):
         q_wdl = torch.stack([qt[..., 0], qt[..., 1], 1.0 - qt[..., 0] - qt[..., 1]], -1)
         qlogp = torch.log_softmax(out.q_logits, -1)
         qm = batch["q_mask"].float() * valid[:, None, None]
-        q_loss = -((q_wdl * qlogp).sum(-1) * qm).sum() / qm.sum().clamp(min=1.0)
+        q_loss = -((q_wdl * qlogp).sum(-1) * qm).sum() / _global_sum(qm.sum()).clamp(min=1.0)
         total = total + cfg.q_weight * q_loss
         parts["q"] = q_loss
 
@@ -241,7 +267,9 @@ def _legal(packed: torch.Tensor) -> torch.Tensor:
 
 def _apply_update(state: TrainState, tx: RAdam, total: torch.Tensor) -> None:
     """Backward into each parameter's `.grad` (left there for the caller),
-    then the optimizer step in place."""
+    then the optimizer step in place.  Under data parallelism the ranks'
+    gradients are summed first (each rank's loss is its part of the global
+    batch's), in one all-reduce."""
     params = list(state.net.parameters())
     for p in params:
         p.grad = None
@@ -249,6 +277,10 @@ def _apply_update(state: TrainState, tx: RAdam, total: torch.Tensor) -> None:
     for p in params:
         if p.grad is None:  # a head the loss does not read: zero, as in JAX
             p.grad = torch.zeros_like(p)
+    if _DP is not None:
+        flat = _DP.all_reduce(torch.cat([p.grad.reshape(-1) for p in params]))
+        for p, g in zip(params, flat.split([p.numel() for p in params])):
+            p.grad = g.view_as(p)
     state.opt_state = tx.step(params, [p.grad for p in params], state.opt_state)
     state.step += 1
 
@@ -339,13 +371,13 @@ def make_distill_step(student: AGNetwork, teacher: AGNetwork, tx: RAdam,
         out = state.net.forward_train(_planes(packed, raw_s))
         s_logp = torch.log_softmax(
             torch.where(legal, out.policy_logits, _NEG).reshape(bsz, -1), -1)
-        policy_loss = -(t_policy * s_logp).sum(-1).mean()
-        value_loss = -(t_value * torch.log_softmax(out.value_logits, -1)).sum(-1).mean()
+        policy_loss = -_batch_mean((t_policy * s_logp).sum(-1))
+        value_loss = -_batch_mean((t_value * torch.log_softmax(out.value_logits, -1)).sum(-1))
         total = policy_loss + value_loss
         if out.q_logits is not None and t_out.q_logits is not None:
             t_q = torch.softmax(t_out.q_logits, -1)
             q_logp = torch.log_softmax(out.q_logits, -1)
-            total = total + cfg.q_weight * (-(t_q * q_logp).sum(-1).mean())
+            total = total + cfg.q_weight * (-_batch_mean((t_q * q_logp).sum(-1)))
         parts = {"policy": policy_loss, "value": value_loss, "total": total}
         _apply_update(state, tx, total)
         return state, {k: v.detach() for k, v in parts.items()}

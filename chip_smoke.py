@@ -173,6 +173,19 @@ Phases, one line each (any failure exits non-zero):
      `TUNE_SIMS` sims); last `PHASE22_PROFILE_STEPS` step of the
      leaf_batch 4 search traced, and its ms and launches per step printed
      beside phases 7 and 8's at S = 1;
+ 23. the last modules (run after phase 21, last) - network_23 against
+     AnchorV1 (`eval/anchor.py`) through `play_multi_match` under
+     `ANCHOR_MCFG` (VCT leaf solver, D = 32: score_backup<32> for both
+     sides), `ANCHOR_PAIRS` openings on 15x15 at `ANCHOR_MATCH_SIMS` sims
+     for `ANCHOR_PLIES` plies: every live move on an empty cell, both nets'
+     values on the final boards finite, the anchor's logits on every ply's
+     boards bit-equal to its CPU copy's, seconds and launches per ply; then
+     a world-size-1 NCCL group (`parallel.distributed.initialize` at
+     tcp://localhost): one DP train step of network_23 at batch `DP_BATCH`
+     (`make_dp_train_step`) bitwise equal to the plain step on the same
+     batch and modes (parameters, BatchNorm statistics, gradients,
+     losses), both timed, no kernel launched; one `make_rl_round`
+     (`RL_BATCH` boards, `RL_SIMS` sims, `RL_MOVES` moves, one DP step);
 then a `kernels` JSON line and, last, {"ok": true, "device": {...}}.
 
 A kernel's `ms` is its device time per launch: for score_scan on the
@@ -2285,6 +2298,224 @@ def search_options_phase(weights, tables, boards, stm) -> dict:
                 seconds=time.perf_counter() - t_phase)
 
 
+# phase 23: the last modules
+ANCHOR_PAIRS = 2  # openings of the AnchorV1 match, so 4 games
+ANCHOR_MATCH_SIMS = 8  # the match's shared simulations (the tool's default: 200)
+# plies played after the 4-stone openings: a ply is two searches of 9
+# launch-bound evaluations at B = 2 under the VCT solver, 4.8 s on the
+# card (16 plies took 76.8 s, over the phase's 40 s)
+ANCHOR_PLIES = 6
+DP_BATCH = 256  # the DP train step's batch (the manager's train_batch_size)
+DP_TIMED_STEPS = 10  # steps timed of the plain and the DP step each
+RL_BATCH = 8  # boards of make_rl_round's self-play
+RL_SIMS = 8
+RL_MOVES = 4
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _counts() -> dict:
+    from alphagomoku_tpu_torch.ops import convnext_fused as CF
+    from alphagomoku_tpu_torch.ops import score_scan as SSM
+
+    return {"score_scan": SSM.score_scan.launches, "score_backup": SSM.score_backup.launches,
+            "fused_trunk": CF.fused_trunk.launches}
+
+
+def _zero_counts() -> None:
+    from alphagomoku_tpu_torch.ops import convnext_fused as CF
+    from alphagomoku_tpu_torch.ops import score_scan as SSM
+
+    SSM.score_scan.launches = SSM.score_backup.launches = CF.fused_trunk.launches = 0
+
+
+def anchor_match_phase(weights, tables) -> dict:
+    """23, part 1: network_23 against AnchorV1 (`eval/anchor.py`) through
+    `play_multi_match` at the anchor's configuration (`ANCHOR_MCFG`: VCT
+    leaf solver, D = 32), `ANCHOR_PAIRS` openings on 15x15, the shared
+    sims cut to `ANCHOR_MATCH_SIMS`, `ANCHOR_PLIES` plies: every live move
+    on an empty cell, both nets' values on the final boards finite, the
+    anchor's logits on every ply's boards bit-equal to its CPU copy's, and
+    the launches per ply (the trunk for network_23, score_backup<32> for
+    both sides)."""
+    import numpy as np
+    import torch
+    from alphagomoku_tpu_torch.eval import anchor as A
+    from alphagomoku_tpu_torch.eval import match as M
+    from alphagomoku_tpu_torch.game.types import GameOutcome
+    from alphagomoku_tpu_torch.ops import convnext_fused as CF
+    from alphagomoku_tpu_torch.search import mcts
+
+    openings = M.random_openings(np.random.default_rng(0), ANCHOR_PAIRS, H, W, stones=4)
+    plies, legal = [], []
+
+    def on_ply(env, moves):
+        plies.append((env.board.clone(), env.to_move.clone()))
+        live = env.outcome == int(GameOutcome.UNKNOWN)
+        legal.append(((env.board.flatten(1).gather(1, moves[:, None])[:, 0] == 0) | ~live).all())
+
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = M.play_multi_match(CF.fused_apply, weights, [A.anchor_opponent()], tables,
+                             A.ANCHOR_MCFG, ANCHOR_MATCH_SIMS, openings,
+                             max_moves=4 + ANCHOR_PLIES, device="cuda", on_ply=on_ply)[0]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _counts()
+    n_plies = len(plies)
+    if not bool(torch.stack(legal).all()):
+        raise SystemExit("anchor match: a move on an occupied cell")
+    # the candidate's search evaluates its roots and once a step; when games
+    # are cut, the match evaluates the final boards with the candidate once
+    want = {"score_scan": 0, "score_backup": 2 * n_plies * ANCHOR_MATCH_SIMS,
+            "fused_trunk": n_plies * (ANCHOR_MATCH_SIMS + 1) + (1 if res.truncated else 0)}
+    if launches != want:
+        raise SystemExit(f"anchor match: launches {launches}, expected {want}")
+    board, stm = torch.cat([b for b, _ in plies]), torch.cat([t for _, t in plies])
+    planes = root_planes(tables, board, stm)
+    card = A.anchor_apply({}, planes)
+    cpu = A.anchor_apply({}, planes.cpu())
+    if not (torch.equal(card.policy_logits.cpu(), cpu.policy_logits)
+            and torch.equal(card.value_logits.cpu(), cpu.value_logits)):
+        raise SystemExit("anchor match: the anchor's logits on the card differ from the CPU's")
+    final, final_stm = plies[-1]
+    values = [mcts._evaluate(apply, w, tables, final, final_stm, True)[1]
+              for apply, w in ((CF.fused_apply, weights), (A.anchor_apply, {}))]
+    if not all(bool(torch.isfinite(v).all()) for v in values):
+        raise SystemExit("anchor match: a non-finite value on the final boards")
+    print(f"anchor match (phase 23): network_23 vs {A.ANCHOR_VERSION}, {2 * ANCHOR_PAIRS} games "
+          f"on {H}x{W} at {ANCHOR_MATCH_SIMS} sims, {n_plies} plies in {seconds:.3f} s "
+          f"({seconds / n_plies:.3f} s a ply); launches {launches} "
+          f"({sum(launches.values()) / n_plies:.1f} of the kernels a ply); outcomes "
+          f"{res.outcomes.tolist()}, pentanomial {res.pentanomial.tolist()}, score "
+          f"{res.score_a}, unfinished {res.truncated}; the anchor's logits on "
+          f"{board.shape[0]} boards bit-equal to the CPU copy's", flush=True)
+    return {"launches": launches, "seconds": seconds, "s_per_ply": seconds / n_plies}
+
+
+def dp_step_phase(net, generation) -> dict:
+    """23, parts 2 and 3: over a world-size-1 NCCL group
+    (`parallel.distributed.initialize` at tcp://localhost), one DP train
+    step of network_23 at batch `DP_BATCH` (`make_dp_train_step`) held
+    bitwise equal to the plain train step on the same batch and modes
+    (parameters, BatchNorm statistics, gradients, losses), then both timed
+    over `DP_TIMED_STEPS` steps; then one `make_rl_round` (`RL_BATCH`
+    boards at `RL_SIMS` sims for `RL_MOVES` moves, then a DP step: no game
+    ends within `RL_MOVES` moves, so `make_targets` masks every sample,
+    the losses are 0 and the step moves the parameters by its weight decay
+    alone)."""
+    import copy
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from alphagomoku_tpu_torch.data import ReplayBuffer
+    from alphagomoku_tpu_torch.game import vectorized as V
+    from alphagomoku_tpu_torch.game.types import GameRules
+    from alphagomoku_tpu_torch.ops import convnext_fused as CF
+    from alphagomoku_tpu_torch.parallel import distributed as D
+    from alphagomoku_tpu_torch.parallel import make_mesh
+    from alphagomoku_tpu_torch.search import mcts
+    from alphagomoku_tpu_torch.selfplay import SelfplayConfig
+    from alphagomoku_tpu_torch.training import train as T
+
+    buf = ReplayBuffer()
+    buf.add_generation(0, {k: v.cpu().numpy() for k, v in generation.items()})
+    batch = {k: torch.from_numpy(v).cuda() for k, v in
+             buf.sample(DP_BATCH, np.random.default_rng(0)).items()}
+    modes = T.draw_modes(torch.Generator(device="cuda").manual_seed(0), DP_BATCH, H, W)
+    tables = V.device_tables(GameRules.FREESTYLE)
+    cfg = T.TrainConfig()
+    url = f"localhost:{_free_port()}"
+    D.initialize(url, 1, 0, backend="nccl")
+    out = {}
+    try:
+        mesh = make_mesh()
+        nets, parts, steps = [], [], []
+        for dp in (False, True):
+            copy_ = copy.deepcopy(net)
+            state, tx = T.create_train_state(copy_, cfg)
+            step = T.make_train_step(copy_, tx, tables, cfg)
+            if dp:
+                step = D.make_dp_train_step(step, mesh)
+                b = D.global_batch_from_local(mesh, batch)
+            else:
+                b = batch
+            _zero_counts()
+            _, p = step(state, b, modes)
+            torch.cuda.synchronize()
+            out["launches" if dp else "plain_launches"] = _counts()
+            nets.append(copy_)
+            parts.append(p)
+            steps.append((step, state, b))
+        plain, dpn = nets
+        same = (all(torch.equal(x, y) for x, y in zip(plain.state_dict().values(),
+                                                       dpn.state_dict().values()))
+                and all(torch.equal(x.grad, y.grad) for x, y in zip(plain.parameters(),
+                                                                    dpn.parameters()))
+                and all(torch.equal(parts[0][k], parts[1][k]) for k in parts[0]))
+        if not same:
+            raise SystemExit("dp step: the world-size-1 NCCL DP step differs from the plain "
+                             "step")
+        if any(out["launches"].values()):
+            raise SystemExit(f"dp step: launched a kernel {out['launches']}")
+        ms = [time_cuda(lambda s=s, st=st, b=b: s(st, b, modes), reps=DP_TIMED_STEPS)
+              for s, st, b in steps]
+        out.update(plain_ms=ms[0], dp_ms=ms[1])
+        print(f"dp step (phase 23): over NCCL at world size 1 ({url}), network_23 at batch "
+              f"{DP_BATCH}: parameters, BatchNorm statistics, gradients and losses bitwise "
+              f"equal to the plain step's (total {float(parts[1]['total']):.6f}); DP step "
+              f"{ms[1]:.3f} ms, plain step {ms[0]:.3f} ms (medians of {DP_TIMED_STEPS}); "
+              f"launches {out['launches']}", flush=True)
+        del nets, steps, plain, dpn
+
+        rl_net = copy.deepcopy(net)
+        state, tx = T.create_train_state(rl_net, cfg)
+        round_fn, _ = D.make_rl_round(
+            CF.fused_apply, T.make_train_step(rl_net, tx, tables, cfg), tables,
+            mcts.MCTSConfig(max_nodes=RL_SIMS + 8, max_edges=32, max_depth=32),
+            SelfplayConfig(num_simulations=RL_SIMS, max_moves=RL_MOVES),
+            batch_per_host=RL_BATCH, rows=H, cols=W, mesh=mesh)
+        before = [p.detach().clone() for p in rl_net.parameters()]
+        _zero_counts()
+        t0 = time.perf_counter()
+        state, p = round_fn(CF.pack_weights(rl_net), state, 0)
+        torch.cuda.synchronize()
+        out["rl_round_s"] = time.perf_counter() - t0
+        out["rl_launches"] = _counts()
+        moved = any(not torch.equal(a, b) for a, b in zip(before, rl_net.parameters()))
+        if not (moved and all(bool(torch.isfinite(v)) for v in p.values())
+                and float(p["total"]) == 0.0):
+            raise SystemExit(f"rl round: parameters moved {moved}, losses {p}")
+        print(f"rl round (phase 23): {RL_BATCH} boards x {RL_MOVES} moves at {RL_SIMS} sims, "
+              f"then one DP step: {out['rl_round_s']:.3f} s, total loss "
+              f"{float(p['total']):.5f} (every sample masked: no game ends in {RL_MOVES} moves), "
+              f"parameters moved by the weight decay; launches {out['rl_launches']}", flush=True)
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def last_modules_phase(net, weights, tables, generation) -> dict:
+    """23. the last modules: `anchor_match_phase`, then `dp_step_phase`."""
+    t0 = time.perf_counter()
+    anchor = anchor_match_phase(weights, tables)
+    dp = dp_step_phase(net, generation)
+    seconds = time.perf_counter() - t0
+    print(f"phase 23: {seconds:.1f} s by its own clock (the anchor match "
+          f"{anchor['seconds']:.1f} s)", flush=True)
+    return {"seconds": seconds, "paths": {"anchor_match": anchor["launches"],
+                                          "dp_step": dp["launches"],
+                                          "rl_round": dp["rl_launches"]},
+            "anchor": anchor, "dp": dp}
+
+
 def main() -> int:
     import torch
 
@@ -2530,6 +2761,11 @@ def main() -> int:
           f"{wide['seconds']:.1f} s, parts 2-4 {zoo['seconds']:.1f} s); zoo ms per simulation "
           f"step at B={ZOO_BATCH}: " + json.dumps({k: round(v, 3) for k, v in
                                                   zoo["step_ms"].items()}), flush=True)
+
+    # 23. the last modules: an AnchorV1 match, the DP train step over NCCL
+    # at world size 1 and one make_rl_round
+    last = last_modules_phase(net, weights, tables, generation)
+    paths.update(last["paths"])
 
     trunk = dict(name="fused_trunk", route="cuda",
                  source="alphagomoku_tpu_torch/csrc/convnext_trunk.cu",

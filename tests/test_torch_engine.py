@@ -452,7 +452,7 @@ def test_trunk_kernel_at_128_on_20x20_raises():
     from alphagomoku_tpu_torch.ops import convnext_fused as CF
 
     x = torch.zeros((1, 20, 20, 128), dtype=torch.bfloat16, device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, item 8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, 'TPU kernels to port', entry 2"):
         CF.fused_trunk(x, None)
     assert CF.trunk_smem_bytes(64, 20, 20) == 146304 <= CF.SM90_SMEM_OPTIN
     assert CF.trunk_smem_bytes(128, 20, 20) == 312576 > CF.SM90_SMEM_OPTIN

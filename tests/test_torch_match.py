@@ -136,7 +136,7 @@ def test_score_pairs_matches_jax(seed):
         want = JMATCH._score_pairs(outcomes, g, adj, exc)
         got = TMATCH._score_pairs(outcomes, g, adj, exc)
         assert np.array_equal(want[0], got[0]) and want[1] == got[1]
-    # no pair left: 0.5, as the JAX package scores it (ROADMAP item 13)
+    # no pair left: 0.5, as the JAX package scores it (ROADMAP §3)
     assert TMATCH._score_pairs(outcomes, g, None, np.ones(2 * g, bool))[1] == 0.5
 
 

@@ -32,6 +32,7 @@ from tests import test_torch_zoo as zoo_tests
 from tests import test_torch_selfcheck as selfcheck_tests
 from tests import test_torch_search_options as options_tests
 from tests import test_torch_tuner as tuner_tests
+from tests import test_torch_anchor as anchor_tests
 
 CASES = {
     "stub_search_standard": lambda: mcts_tests.jax_stub_search(GameRules.STANDARD),
@@ -81,4 +82,5 @@ CASES = {
     **{name: (lambda name=name: options_tests.jax_options_search(name))
        for name in options_tests.CASES},
     "tuner_step": tuner_tests.jax_tuner_step,
+    "anchor_match": anchor_tests.jax_anchor_match,
 }
