@@ -29,8 +29,9 @@ CUDA tensors and on their plain versions for CPU tensors:
   rows, then the JAX backup's claim dedup.
 
 Both take any K, as the Pallas kernel does: K <= 32 edge slots run the
-staged kernels (one lane a slot), K > 32 the wide kernels (each lane a
-slot every 32), chosen by K on the host.
+staged kernels (one lane a slot, the rows in registers), K > 32 the wide
+kernels (the rows staged in shared memory, each lane a slot every 32),
+chosen by K on the host.
 
 Scores are packed uint16 values carried in int32.
 """
@@ -251,12 +252,15 @@ def score_backup_paths(edge_score, edge_action, node_complete, node_score, pn, p
 def scan_occupancy(D: int = 16, K: int = 32) -> dict:
     """What the current card gives the kernels launched at depth D with K
     edge slots, by entry point: blocks per SM, registers per thread, static
-    shared memory per block (bytes) and local memory per thread (bytes;
-    spills)."""
+    shared memory per block (bytes), local memory per thread (bytes;
+    spills), dynamic shared memory per block (bytes; the wide kernels stage
+    their rows there, sized by K) and rows (warps) per block."""
     out = {}
+    keys = ("blocks_per_sm", "registers", "smem_bytes", "local_bytes", "dyn_smem_bytes",
+            "warps_per_block")
     for backup, name in ((0, "score_scan"), (1, "score_backup")):
-        info = (ctypes.c_int * 4)()
+        info = (ctypes.c_int * len(keys))()
         _build.check(_build.library().ag_score_scan_occupancy(backup, D, K, info),
                      "scan_occupancy")
-        out[name] = dict(zip(("blocks_per_sm", "registers", "smem_bytes", "local_bytes"), info))
+        out[name] = dict(zip(keys, info))
     return out

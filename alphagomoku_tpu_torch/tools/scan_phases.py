@@ -7,7 +7,10 @@ Each DIR is a checkout of this repo (or the repo itself).  Its
 `alphagomoku_tpu_torch/csrc/score_scan.cu` is built whole and, where the
 source marks its chain (`// >> chain` ... `// << chain`), once more with
 the chain cut: each level then passes p on through a cheap mix of the same
-inputs (`CHAIN_CUT`), so the stage-3 shuffles stay.  Built once from this
+inputs (`CHAIN_CUT`), so the stage-3 shuffles stay; and, where the source
+has the wide kernels' per-warp depth dispatch (kL = 4, 8 or kWideD levels
+a chunk, up to the deepest valid one), once more with every chunk run at
+kWideD (`one_kL`, which computes the same results).  Built once from this
 repo's own source: `floor`, a kernel with score_scan's grid that loads each
 row's start score and stores its row, and `invert_chain`, a warp per row
 that applies invert_up 16 or 64 times in a row to its start score (the
@@ -21,10 +24,15 @@ holds about one warp, so no warp waits for another's issue); score_backup
 on chip_smoke's random trees at B = 1280, N = 808, with the paths as drawn
 (`full`) and cut to their first 3 levels (`shallow`, as deep as the
 flagship search's paths).  A checkout whose library has no score_backup
-(one from before it existed) times score_scan only.  Each whole copy is checked bit-equal
-against the plain versions; the cut copies compute wrong results and exist
-only to be timed.  The last line printed is one JSON object with every
-reading, in microseconds.
+(one from before it existed) times score_scan only.  The wide kernels
+(K > 32) are timed, in a checkout whose source has them (none before
+they existed), on `WIDE_SCAN` and `WIDE_BACKUP`: score_scan on random rows at the 9x9
+leaf-batch step's shape (R = 1,024, K = 81, D = 16) and on
+chip_smoke.py phase 21's inputs (R = 1,280), and score_backup on phase
+21's random trees (B = 1,280, 64 nodes).  Each whole
+copy is checked bit-equal against the plain versions; the cut copies
+compute wrong results and exist only to be timed.  The last line printed
+is one JSON object with every reading, in microseconds.
 """
 
 from __future__ import annotations
@@ -44,6 +52,14 @@ SOURCE = Path("alphagomoku_tpu_torch") / "csrc" / "score_scan.cu"
 # dependent arithmetic
 CHAIN_CUT = ("    if (lane == d) seen = p;\n"
              "    p ^= f[d] ^ best_d[d] ^ inv_u[d] ^ inv_p[d] ^ inv_old[d];\n")
+# the wide kernels' shapes: score_scan (R, K, D), score_backup (K, D), the
+# inputs drawn as chip_smoke.py draws them (phase 21's seed K + D)
+# (K = 81, D = 8 is the --selfcheck search's own depth)
+WIDE_SCAN = ((1024, 81, 16), (1280, 33, 16), (1280, 33, 32), (1280, 81, 8), (1280, 81, 16),
+             (1280, 81, 32), (1280, 225, 16), (1280, 225, 32), (1280, 400, 16))
+WIDE_BACKUP = tuple((K, D) for _, K, D in WIDE_SCAN[1:])
+# a wide chunk's call of its levels at a depth below kWideD
+WIDE_DISPATCH = re.compile(r"\b(AG_WIDE(?:_BACKUP)?_LEVELS)\((?:4|8)\)")
 # the yardsticks, appended to this repo's source (they use its invert_up
 # and kWarps)
 YARDSTICKS = r"""
@@ -99,12 +115,20 @@ def cut_chain(source: str) -> str:
     return "".join(out)
 
 
+def one_kl(source: str) -> str:
+    """`source` with the wide kernels' depth dispatch taken out: each
+    branch runs the chunk's full kWideD levels."""
+    return WIDE_DISPATCH.sub(r"\1(kWideD)", source)
+
+
 def variants(checkout: Path) -> dict[str, str]:
     """The copies built from one checkout's source."""
     src = (checkout / SOURCE).read_text()
     found = {"whole": src}
     if "// >> chain" in src:
         found["no_chain"] = cut_chain(src)
+    if WIDE_DISPATCH.search(src):
+        found["one_kL"] = one_kl(src)
     return found
 
 
@@ -159,6 +183,8 @@ def main() -> int:
     for i, d in enumerate(args.checkouts):
         for name, text in variants(d.resolve()).items():
             sources[f"{i}_{d.resolve().name}_{name}"] = text
+    has_wide = {name: "score_scan_wide_kernel" in text and "score_backup_wide_kernel" in text
+                for name, text in sources.items()}
     libs = {name: ctypes.CDLL(str(so)) for name, so in build(sources).items()}
 
     dev = torch.device("cuda")
@@ -178,6 +204,18 @@ def main() -> int:
     e = torch.empty((R, D), dtype=torch.int32, device=dev)
     n = torch.empty_like(e)
     us = {}
+    wide_scan = {}
+    for rows, k, d in WIDE_SCAN:
+        a = [torch.from_numpy(x).to(dev)
+             for x in cs.random_scan_inputs(rows, d, k, seed=1 if rows == 1024 else k + d)]
+        wide_scan[rows, k, d] = a, SSM.score_scan_plain(*a)
+    wide_backup = {}
+    for k, d in WIDE_BACKUP:
+        tree = {name: torch.from_numpy(v).to(dev) for name, v in
+                cs.random_backup_inputs(R, cs.WIDE_NODES, d, k, k + d).items()}
+        ref = {name: t.clone() for name, t in tree.items()}
+        SSM.score_backup_plain(*(ref[name] for name in names))
+        wide_backup[k, d] = tree, ref
 
     def device_us(call, kernel: str) -> float:
         if call() != 0:
@@ -209,6 +247,30 @@ def main() -> int:
                     row["score_backup_bit_equal"] = all(torch.equal(t[k], ref_tree[k])
                                                         for k in names)
                 row[f"score_backup_{tag}"] = device_us(bcall, "score_backup_kernel")
+        if has_wide[name]:
+            equal = True
+            for (rows, k, d), (a, (want_e, want_ns)) in wide_scan.items():
+                got_e = torch.empty((rows, d), dtype=torch.int32, device=dev)
+                got_ns = torch.empty_like(got_e)
+
+                def wcall(a=a, got_e=got_e, got_ns=got_ns, rows=rows, k=k, d=d):
+                    return scan(*[x.data_ptr() for x in a], got_e.data_ptr(), got_ns.data_ptr(),
+                                rows, d, k, stream)
+                row[f"wide_scan_R{rows}_K{k}_D{d}"] = device_us(wcall, "score_scan_wide_kernel")
+                torch.cuda.synchronize()
+                equal &= bool(torch.equal(got_e, want_e) and torch.equal(got_ns, want_ns))
+            backup = _fn(lib, "ag_score_backup", _build.SIGNATURES["ag_score_backup"])
+            for (k, d), (tree, ref) in wide_backup.items():
+                t = {name: v.clone() for name, v in tree.items()}
+
+                def wbcall(t=t, k=k, d=d):
+                    return backup(*[t[name].data_ptr() for name in names], R, cs.WIDE_NODES, d, k,
+                                  stream)
+                wbcall()
+                torch.cuda.synchronize()
+                equal &= all(torch.equal(t[name], ref[name]) for name in names)
+                row[f"wide_backup_K{k}_D{d}"] = device_us(wbcall, "score_backup_wide_kernel")
+            row["wide_bit_equal"] = equal
         us[name] = row
         print(f"{name}: {json.dumps(row)}", flush=True)
 

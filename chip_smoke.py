@@ -132,9 +132,12 @@ Phases, one line each (any failure exits non-zero):
      build/chip_smoke/engine_benchmark/);
  21. zoo and selfcheck - part 1 (run after phase 4, before the first
      trace of search steps): score_scan and score_backup at K = 33, 81
-     and 225 edge slots (the wide kernels: each lane a slot every 32),
-     D = 16 and 32, bit-equal to their plain versions and timed beside
-     their bytes bounds; parts 2-4 (run last): every trunk family but
+     and 225 edge slots (the wide kernels: the rows staged in shared
+     memory, each lane a slot every 32), D = 16 and 32, and at K = 400,
+     D = 16, bit-equal to their plain versions and timed beside their
+     bytes bounds and the parent design's times, with each K's
+     registers, blocks per SM, dynamic shared memory and spills (0);
+     parts 2-4 (run last): every trunk family but
      convnext at the launcher's width (6x64; the unets at 64; FastPolicy
      at 2x32) with seeded weights: an 8-sim search at B = 256 on the
      bench boards through `models.forward.network_apply` (score_backup
@@ -1622,13 +1625,27 @@ def _same_tree(a: dict, b: dict) -> bool:
 # phase 21: the network zoo and --selfcheck
 # ---------------------------------------------------------------------------
 
-WIDE_K = (33, 81, 225)  # edge slots of the K > 32 kernels held here
-WIDE_D = (16, 32)  # their path depths
+# (K, D) of the K > 32 kernels held here: edge slots, path depth
+WIDE_SHAPES = ((33, 16), (33, 32), (81, 16), (81, 32), (225, 16), (225, 32), (400, 16))
 WIDE_NODES = 64  # nodes per tree of the K > 32 backups
 WIDE_PLAIN_REPS = 3  # calls timed of their plain versions (20 to 60 ms each)
 # score_backup_kernel<16> on the flagship tree's paths before the wide
 # kernels were added (PERF.md §6)
 BACKUP_MS_BEFORE_WIDE = 0.00577
+# the wide kernels of the design before the staged one (each level's row
+# loaded after the level below) at WIDE_SHAPES, ms (PERF.md §6: tools/scan_phases.py
+# on the parent checkout, the mean of its two runs A B B A in one call,
+# NVIDIA H100 80GB HBM3 at 700 W)
+WIDE_MS_PARENT = {
+    "score_scan": {"K=33 D=16": 0.015485, "K=33 D=32": 0.029726,
+                   "K=81 D=16": 0.022525, "K=81 D=32": 0.043565,
+                   "K=225 D=16": 0.056464, "K=225 D=32": 0.205107,
+                   "K=400 D=16": 0.157288},
+    "score_backup": {"K=33 D=16": 0.017072, "K=33 D=32": 0.031657,
+                     "K=81 D=16": 0.026108, "K=81 D=32": 0.046835,
+                     "K=225 D=16": 0.07389, "K=225 D=32": 0.240208,
+                     "K=400 D=16": 0.166119},
+}
 ZOO_SIMS = 8
 ZOO_BATCH = 256
 ZOO_SEED = 0  # torch.Generator seed of every zoo network's weights
@@ -1670,10 +1687,13 @@ def zoo_network(family: str):
 def wide_kernels_phase() -> dict:
     """Phase 21, part 1 (run after phase 4, before the first trace of
     search steps, after which torch.profiler misses lone launches):
-    score_scan and score_backup at K = 33, 81 and 225 edge slots, D = 16
-    and 32 levels, each bit-equal to its plain version and timed beside
-    its bytes bound.  Returns the measurements by entry point and shape,
-    and the seconds."""
+    score_scan and score_backup at each of `WIDE_SHAPES`, each bit-equal to
+    its plain version and timed beside its bytes bound, and printed beside
+    the parent design's time (`WIDE_MS_PARENT`, kept out of the returned
+    entries, which this run did not measure); then what the card gives the wide
+    kernels at each K (registers, blocks per SM, dynamic shared memory,
+    spills, which must be 0).  Returns the measurements by entry point and
+    shape, the occupancy at K = 81 and by K, and the seconds."""
     import torch
     from alphagomoku_tpu_torch.ops import score_scan as SSM
 
@@ -1681,39 +1701,46 @@ def wide_kernels_phase() -> dict:
     dev = torch.device("cuda")
     out = {"score_scan": {}, "score_backup": {}}
     R = BATCH
-    for K in WIDE_K:
-        for D in WIDE_D:
-            args = tuple(torch.from_numpy(a).to(dev) for a in random_scan_inputs(R, D, K, K + D))
-            e_k, ns_k = SSM.score_scan(*args)
-            e_p, ns_p = SSM.score_scan_plain(*args)
-            torch.cuda.synchronize()
-            if not (torch.equal(e_k, e_p) and torch.equal(ns_k, ns_p)):
-                raise SystemExit(f"score_scan K={K} D={D}: kernel disagrees with the plain "
-                                 "version")
-            ms = kernel_device_ms(lambda: SSM.score_scan(*args), "score_scan_wide_kernel")
-            plain_ms = time_cuda(lambda: SSM.score_scan_plain(*args), reps=WIDE_PLAIN_REPS,
-                                 warmup=1)
-            nbytes = 2 * (R + R * D * K + 3 * R * D) + (R * D * K + 3 * R * D)
-            bound_ms = nbytes / HBM_BPS * 1e3
-            out["score_scan"][f"K={K} D={D}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
-            print(f"score_scan K={K}: bit-equal at R={R} D={D}; kernel {ms:.5f} ms on the "
-                  f"device, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({nbytes} bytes "
-                  "at u16 scores)", flush=True)
-            del args, e_k, ns_k, e_p, ns_p
-            tree = {k: torch.from_numpy(v).to(dev) for k, v in
-                    random_backup_inputs(R, WIDE_NODES, D, K, K + D).items()}
-            out["score_backup"][f"K={K} D={D}"] = backup_phase(
-                tree, f"score_backup K={K}", "score_backup_wide_kernel", WIDE_PLAIN_REPS)
-            del tree
-    occ = SSM.scan_occupancy(32, 81)
-    if any(o["local_bytes"] for o in occ.values()):
-        raise SystemExit(f"score_scan: a wide kernel spills to local memory: {occ}")
+    for K, D in WIDE_SHAPES:
+        shape = f"K={K} D={D}"
+        args = tuple(torch.from_numpy(a).to(dev) for a in random_scan_inputs(R, D, K, K + D))
+        e_k, ns_k = SSM.score_scan(*args)
+        e_p, ns_p = SSM.score_scan_plain(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(e_k, e_p) and torch.equal(ns_k, ns_p)):
+            raise SystemExit(f"score_scan {shape}: kernel disagrees with the plain version")
+        ms = kernel_device_ms(lambda: SSM.score_scan(*args), "score_scan_wide_kernel")
+        plain_ms = time_cuda(lambda: SSM.score_scan_plain(*args), reps=WIDE_PLAIN_REPS, warmup=1)
+        nbytes = 2 * (R + R * D * K + 3 * R * D) + (R * D * K + 3 * R * D)
+        bound_ms = nbytes / HBM_BPS * 1e3
+        out["score_scan"][shape] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+        print(f"score_scan K={K}: bit-equal at R={R} D={D}; kernel {ms:.5f} ms on the "
+              f"device, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({nbytes} bytes "
+              "at u16 scores)", flush=True)
+        del args, e_k, ns_k, e_p, ns_p
+        tree = {k: torch.from_numpy(v).to(dev) for k, v in
+                random_backup_inputs(R, WIDE_NODES, D, K, K + D).items()}
+        out["score_backup"][shape] = backup_phase(
+            tree, f"score_backup K={K}", "score_backup_wide_kernel", WIDE_PLAIN_REPS)
+        del tree
+        for name in out:
+            ms, parent_ms = out[name][shape]["ms"], WIDE_MS_PARENT[name][shape]
+            print(f"{name} {shape}: {ms:.5f} ms, the parent design {parent_ms:.5f} ms "
+                  f"({parent_ms / ms:.2f}x)", flush=True)
+    by_k = {K: SSM.scan_occupancy(32, K) for K in sorted({K for K, _ in WIDE_SHAPES})}
+    for K, occ in by_k.items():
+        if any(o["local_bytes"] or o["blocks_per_sm"] < 1 for o in occ.values()):
+            raise SystemExit(f"K={K}: a wide kernel spills to local memory or does not fit an "
+                             f"SM: {occ}")
+        print(f"wide kernels at K={K}: " + "; ".join(
+            f"{name}: {o['registers']} registers per thread, {o['blocks_per_sm']} blocks per SM "
+            f"of {o['warps_per_block']} rows, {o['dyn_smem_bytes']} bytes of dynamic shared "
+            f"memory a block, {o['local_bytes']} bytes of local memory"
+            for name, o in occ.items()), flush=True)
     seconds = time.perf_counter() - t0
-    print("wide kernels occupancy: " + "; ".join(
-        f"{name}: {o['registers']} registers per thread, {o['blocks_per_sm']} blocks per SM, "
-        f"{o['local_bytes']} bytes of local memory" for name, o in occ.items())
-        + f"; phase 21 part 1: {seconds:.1f} s", flush=True)
-    return dict(entries=out, occupancy=occ, seconds=seconds)
+    print(f"phase 21 part 1: {seconds:.1f} s", flush=True)
+    return dict(entries=out, occupancy=by_k[81],
+                occupancy_by_k={f"K={K}": occ for K, occ in by_k.items()}, seconds=seconds)
 
 
 def forward_on_card_vs_cpu(net, planes, tag: str) -> str:
@@ -2782,7 +2809,8 @@ def main() -> int:
             name=f"{name}_wide", route="cuda", source="alphagomoku_tpu_torch/csrc/score_scan.cu",
             replaces="alphagomoku_tpu/ops/score_scan.py:111", status="bit-equal", max_abs_err=0.0,
             bound_by="bytes", library_ms=None, shape=top, **wide["entries"][name][top],
-            shapes=wide["entries"][name], **wide["occupancy"][name]))
+            shapes=wide["entries"][name], **wide["occupancy"][name],
+            occupancy_by_k={k: occ[name] for k, occ in wide["occupancy_by_k"].items()}))
     # score_scan's headline is the leaf-batch search's rows, where backup B
     # launches it; phase 3's random rows and phase 21's shapes stay beside
     timing = ("shape", "ms", "call_ms", "plain_ms", "bound_ms")

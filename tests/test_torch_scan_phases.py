@@ -39,7 +39,19 @@ def test_variants_of_a_source_without_marks_are_whole_only(tmp_path):
     (tmp_path / T.SOURCE).parent.mkdir(parents=True)
     (tmp_path / T.SOURCE).write_text("// a kernel\n")
     assert list(T.variants(tmp_path)) == ["whole"]
-    assert list(T.variants(ROOT)) == ["whole", "no_chain"]
+    assert list(T.variants(ROOT)) == ["whole", "no_chain", "one_kL"]
+
+
+def test_one_kl_runs_every_wide_chunk_at_full_depth():
+    calls = re.findall(r"AG_WIDE(?:_BACKUP)?_LEVELS\((\w+)\);", SOURCE)
+    assert sorted(calls) == sorted(["kWideD", "8", "4"] * 2)
+    one = T.one_kl(SOURCE)
+    assert re.findall(r"AG_WIDE(?:_BACKUP)?_LEVELS\((\w+)\);", one) == ["kWideD"] * 6
+    assert not T.WIDE_DISPATCH.search(one)
+    pairs = list(zip(SOURCE.splitlines(), one.splitlines(), strict=True))
+    changed = [new for old, new in pairs if old != new]
+    assert len(changed) == 4 and all(new.endswith("_LEVELS(kWideD);") for new in changed)
+    assert "AG_BACKUP_LEVELS(4)" in SOURCE and "AG_BACKUP_LEVELS(4)" in one
 
 
 def test_yardsticks_use_the_source_definitions():

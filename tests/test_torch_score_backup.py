@@ -29,6 +29,10 @@ BENCH = (1280, 808, 16, 32, 5)
 # engine's D = 40
 WIDE = [(8, 40, 12, 33, 7), (16, 30, 16, 81, 8), (8, 40, 32, 225, 9), (8, 60, 40, 81, 10),
         (4, 50, 40, 400, 11)]
+# the wide kernels on the card at every K held, each at one level, either
+# side of a 16-level chunk's edges, and the engine's 40
+WIDE_K = [33, 64, 81, 225, 400]
+WIDE_D = [1, 8, 16, 17, 32, 33, 40]
 
 
 @pytest.fixture
@@ -38,13 +42,14 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def random_tree(B, N, D, K, seed):
+def random_tree(B, N, D, K, seed, holes=False):
     """A tree of B boards with N nodes of K edge slots and one path of D
     levels per board, as numpy arrays, from `random_inputs`' generator:
     the tree's rows are its [B, N(, K)] draws (inactive slots get NULL
     actions), the path its [B, D] draws (distinct nodes per board, NULL
-    past the valid prefix; the traversed slots are its `sl`)."""
-    start, valid, sl, _, _, _, _ = random_inputs(B, D, K, seed)
+    past the valid prefix, or at random levels with `holes`; the traversed
+    slots are its `sl`)."""
+    start, valid, sl, _, _, _, _ = random_inputs(B, D, K, seed, holes)
     _, _, _, es, ea, comp, ns = random_inputs(B, N, K, seed + 1000)
     rng = np.random.default_rng(seed + 2000)
     actions = np.where(ea, rng.integers(0, 225, size=ea.shape), NULL).astype(np.int32)
@@ -158,7 +163,7 @@ def test_wide_kernels_match_plain_on_card(B, N, D, K, seed, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K", [33, 81, 225])
+@pytest.mark.parametrize("K", [33, 81, 225, 400])
 def test_wide_kernels_keep_their_state_in_registers(K, cuda_device):
     for name, occ in TSS.scan_occupancy(40, K).items():
         assert occ["local_bytes"] == 0, (name, occ)
@@ -187,3 +192,51 @@ def test_scan_kernels_keep_their_levels_in_registers(D, cuda_device):
     for name, occ in TSS.scan_occupancy(D).items():
         assert occ["local_bytes"] == 0, (name, occ)
         assert occ["blocks_per_sm"] >= 1, (name, occ)
+
+
+def wide_pair_on_card(B, N, D, K, seed, device, holes=False):
+    """score_backup on a random tree and score_scan on random rows, each
+    against its plain version: the names of what differs."""
+    tree = random_tree(B, N, D, K, seed, holes)
+    out = run(TSS.score_backup, to_torch(tree, device))
+    ref = run(TSS.score_backup_plain, to_torch(tree, device))
+    differ = [name for name in tree if not torch.equal(out[name], ref[name])]
+    args = scan_to_torch(random_inputs(B, D, K, seed, holes), device)
+    got, want = TSS.score_scan(*args), TSS.score_scan_plain(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        differ.append("score_scan")
+    return differ
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", WIDE_D)
+@pytest.mark.parametrize("K", WIDE_K)
+def test_wide_kernels_match_plain_at_every_depth(K, D, cuda_device):
+    """Both wide entry points bit-equal to their plain versions at each K
+    and D, on paths as drawn and on paths with holes."""
+    for holes in (False, True):
+        assert wide_pair_on_card(64, 48, D, K, 100 + K + D, cuda_device, holes) == [], holes
+
+
+@pytest.mark.cuda
+def test_wide_kernels_match_plain_at_the_9x9_step_shape(cuda_device):
+    """R = 1,024 rows and paths at K = 81, D = 16: the 9x9 leaf-batch
+    step's scan shape."""
+    assert wide_pair_on_card(1024, 64, 16, 81, 16, cuda_device) == []
+
+
+@pytest.mark.cuda
+def test_wide_kernel_matches_plain_on_every_start_score(cuda_device):
+    """test_kernel_matches_plain_on_every_start_score at K = 81 (the wide
+    kernel)."""
+    R = 1 << 16
+    tree = random_tree(R, 1, 1, 81, 17)
+    tree["pn"][:] = 0
+    tree["ps"][:] = np.random.default_rng(17).integers(0, 81, size=(R, 1))
+    tree["start_score"] = np.arange(R, dtype=np.int32)
+    out = run(TSS.score_backup, to_torch(tree, cuda_device))
+    ref = run(TSS.score_backup_plain, to_torch(tree, cuda_device))
+    torch.cuda.synchronize()
+    for name in tree:
+        assert torch.equal(out[name], ref[name]), name
