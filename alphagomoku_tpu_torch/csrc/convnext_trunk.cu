@@ -1,7 +1,11 @@
 // Fused ConvNext trunk for Hopper: all L blocks of the trunk in one launch,
 // each board's activation kept in shared memory throughout.  One kernel,
 // templated on the width C and built for C = 64 (the 6x64 flagship) and
-// C = 128 (the 8x128 network).
+// C = 128 (the 8x128 network); narrower trunks run at the next width on
+// zero channels (ops/convnext_fused.py `pad_trunk`).  A second entry,
+// `convnext_trunk_cluster_kernel<128>`, takes C = 128 on boards whose
+// activations do not fit one CTA (above 252 cells: 16x16 to 20x20), as a
+// cluster of two CTAs a board (see the end of this comment).
 //
 // Replaces the Pallas TPU kernel `_trunk_kernel` of
 // alphagomoku_tpu/ops/convnext_fused.py (wrapper `fused_trunk`).  Per
@@ -69,7 +73,23 @@
 //   (before its barrier), so each thread keeps C*C/2048 loads per dense in
 //   flight; each dense is split over all warps and reduced by shuffles and
 //   a per-warp row of partial sums.
+//
+// The cluster entry (C = 128 above 252 cells, where one CTA would need
+// 234,240 B at 16x16 up to 312,576 B at 20x20 against the card's 232,448):
+// a cluster of two CTAs a board, CTA r holding rows [r * ceil(H/2), ...):
+// its own rows' activation and depthwise output, the 3 rows of the other
+// half its depthwise reads (the halo), and its own copy of w1, w2, the taps
+// and the vectors (220,608 B at 20x20).  Each block: the halo rows are
+// copied from the other CTA's activation through distributed shared memory
+// between two cluster barriers (the second keeps the other CTA's in-place
+// pointwise from overwriting them early); the depthwise, the products with
+// their settle() and the channel scale run on the CTA's own rows as in the
+// one-CTA kernel, with the same rounding points; the SE mean adds the two
+// CTAs' column sums (CTA 0's first on both, so both gate alike) after a
+// third barrier, and both run the SE denses.  A last barrier keeps a CTA's
+// shared memory alive until the other has read it.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -117,6 +137,14 @@ struct Trunk {
     const size_t hw = size_t(H) * W;
     return (2 * hw * RS + 2 * size_t(C) * RS + kTaps * C) * sizeof(bf16) +
            (4 * C + 2 * kWarps * C + 3 * C + 2 * C) * sizeof(float);
+  }
+  // dynamic shared memory of one CTA of the cluster entry: the larger
+  // half's rows plus the halo, the depthwise output of the larger half,
+  // and one more f32 vector (the CTA's SE column sums)
+  static size_t cluster_bytes(int H, int W) {
+    const size_t top = (H + 1) / 2;
+    return ((2 * top + kR) * W * RS + 2 * size_t(C) * RS + kTaps * C) * sizeof(bf16) +
+           (4 * C + 2 * kWarps * C + 3 * C + 2 * C + C) * sizeof(float);
   }
 };
 
@@ -304,13 +332,17 @@ __device__ __forceinline__ void stage_layer(const Weights& wt, int l, bf16* dw, 
 // one row for one pair, so each input it loads serves up to 7 taps, and
 // reads the taps one row of 7 at a time.  kFixedW: the board is kStrip
 // wide, so the strip is the row and every bound on a column is known when
-// compiling.
-template <int C, bool kFixedW>
+// compiling.  kBand (the cluster entry): act is a window of `in_rows` rows
+// and output row r is centred on its row r + `shift`; otherwise act is the
+// board (H rows, shift 0).
+template <int C, bool kFixedW, bool kBand = false>
 __device__ __forceinline__ void depthwise(const bf16* act, const bf16* dw, bf16* ybuf,
                                           const float* bn_s, const float* bn_t, int H,
-                                          int width, int tid) {
+                                          int width, int tid, int shift = 0, int in_rows = 0) {
   constexpr int C2 = Trunk<C>::C2, RS2 = Trunk<C>::RS2;
   const int W = kFixedW ? kStrip : width;
+  const int top = kBand ? shift : 0;
+  const int rows = kBand ? in_rows : H;
   const bf2* act2 = reinterpret_cast<const bf2*>(act);
   const bf2* dw2 = reinterpret_cast<const bf2*>(dw);
   bf2* y2 = reinterpret_cast<bf2*>(ybuf);
@@ -323,8 +355,8 @@ __device__ __forceinline__ void depthwise(const bf16* act, const bf16* dw, bf16*
     for (int o = 0; o < kStrip; ++o) acc[o] = make_float2(0.f, 0.f);
 #pragma unroll 1
     for (int di = 0; di < kK; ++di) {
-      const int rr = r + di - kR;
-      if (rr < 0 || rr >= H) continue;
+      const int rr = r + top + di - kR;
+      if (rr < 0 || rr >= rows) continue;
       float2 tap[kK];
 #pragma unroll
       for (int dj = 0; dj < kK; ++dj) tap[dj] = __bfloat1622float2(dw2[(di * kK + dj) * C2 + p]);
@@ -389,6 +421,274 @@ __device__ __forceinline__ void dense_partial(const float* in,
   }
 }
 
+// The phases of a block, for the cluster entry.  The one-CTA kernel below
+// writes each of them out in its body (see there why): every helper here
+// has a twin there, named in a "twin:" comment at both, and an edit to one
+// (a rounding point, settle()'s use) is made to both.  Only the card tests
+// against the plain trunk would catch the two drifting apart.
+
+// Column 2-norms of w1 and w2 times kErr, for settle().
+// twin: the kExact norms at the top of convnext_trunk_kernel's layer loop.
+template <int C>
+__device__ __forceinline__ void column_norms(const bf16* w1, const bf16* w2, float* wnorm,
+                                             int tid) {
+  constexpr int RS = Trunk<C>::RS;
+  for (int i = tid; i < 2 * C; i += kThreads) {
+    const bf16* wc = (i < C ? w1 : w2) + i % C;
+    float n = 0.f;
+#pragma unroll 8
+    for (int k = 0; k < C; ++k) {
+      const float v = __bfloat162float(wc[k * RS]);
+      n = fmaf(v, v, n);
+    }
+    wnorm[i] = kErr * sqrtf(n);
+  }
+}
+
+// Both pointwise products of the HW cells of act / ybuf: relu(y @ w1 + b1)
+// (bf16, kept as A fragments) and y2 = . @ w2 + b2 (bf16), residual add
+// (bf16) in place in act, and each warp's column sums of the result in
+// red[warp][C] for the SE mean.
+// twin: the "pointwise on tensor cores" block of convnext_trunk_kernel.
+template <int C>
+__device__ __forceinline__ void pointwise(bf16* act, bf16* ybuf, const bf16* w1, const bf16* w2,
+                                          const float* wnorm, const float* b1, const float* b2,
+                                          float* red, int HW, int warp, int lane) {
+  using G = Trunk<C>;
+  constexpr int RS = G::RS, KT = G::KT, MT = G::MT, NC = G::NC;
+  // pointwise on tensor cores: MT m16 tiles per warp through
+  // relu(y @ w1 + b1) (bf16, kept as A fragments) and y2 = . @ w2 + b2
+  // (bf16), residual add (bf16) in place, column sums for the SE mean.
+  // With kExact, every output whose bf16 rounding the tensor cores'
+  // sum cannot decide is summed again in the plain version's order.
+  const int g = lane >> 2, t = lane & 3;
+  const int ntiles = (HW + 15) / 16;
+  float sums[C / 8][2];
+#pragma unroll
+  for (int j = 0; j < C / 8; ++j) sums[j][0] = sums[j][1] = 0.f;
+  // this lane's ldmatrix row: row (lane & 15), 8-column half (lane >> 4)
+  constexpr int kB = sizeof(bf16);
+  const uint32_t brow1 = smem_u32(w1 + (lane & 15) * RS + (lane >> 4) * 8);
+  const uint32_t brow2 = smem_u32(w2 + (lane & 15) * RS + (lane >> 4) * 8);
+#pragma unroll 1
+  for (int m0 = warp * MT; m0 < ntiles; m0 += kWarps * MT) {
+    uint32_t arow[MT];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+      arow[m] = smem_u32(ybuf + min((m0 + m) * 16 + (lane & 15), HW - 1) * RS + (lane >> 4) * 8);
+    // sum-of-squares norms of this lane's two rows (g, g + 8) of each
+    // tile, for the error bound of kExact
+    float rn[MT][2];
+    uint32_t a2[MT][KT][4];
+#pragma unroll
+    for (int nc = 0; nc < C / NC; ++nc) {
+      float acc[MT][NC / 8][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int j = 0; j < NC / 8; ++j) acc[m][j][0] = acc[m][j][1] = acc[m][j][2] = acc[m][j][3] = 0.f;
+      if (nc == 0)
+#pragma unroll
+        for (int m = 0; m < MT; ++m) rn[m][0] = rn[m][1] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) {
+        uint32_t a[MT][4];
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          ldmatrix_x4(a[m], arow[m] + kk * 16 * kB);
+          if (G::kExact && nc == 0) {
+            // registers 0 and 2 hold row g, 1 and 3 row g + 8
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              const float2 f = unpack2(a[m][r]);
+              rn[m][r & 1] = fmaf(f.x, f.x, fmaf(f.y, f.y, rn[m][r & 1]));
+            }
+          }
+        }
+#pragma unroll
+        for (int nn = 0; nn < NC / 16; ++nn) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, brow1 + (kk * 16 * RS + nc * NC + nn * 16) * kB);
+#pragma unroll
+          for (int m = 0; m < MT; ++m) {
+            mma_bf16(acc[m][2 * nn], a[m], b[0], b[1]);
+            mma_bf16(acc[m][2 * nn + 1], a[m], b[2], b[3]);
+          }
+        }
+      }
+      if (G::kExact) {
+        if (nc == 0) quad_norms<MT>(rn);
+        settle<C, MT, NC / 8>(acc, rn, wnorm, b1, ybuf, w1, m0, nc * NC, HW, g, t, true);
+      }
+#pragma unroll
+      for (int j = 0; j < NC / 8; ++j) {
+        const int col = nc * NC + j * 8 + 2 * t;
+        const float bx = b1[col], by = b1[col + 1];
+        const int kt = (nc * NC + j * 8) / 16, half = j & 1;
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          a2[m][kt][2 * half] = pack_bf16(fmaxf(acc[m][j][0] + bx, 0.f), fmaxf(acc[m][j][1] + by, 0.f));
+          a2[m][kt][2 * half + 1] = pack_bf16(fmaxf(acc[m][j][2] + bx, 0.f), fmaxf(acc[m][j][3] + by, 0.f));
+        }
+      }
+    }
+    if (G::kExact) {
+      // the relu output of these tiles replaces their depthwise rows,
+      // for the sums settle() takes again in product 2; and its norms
+      __syncwarp();
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        rn[m][0] = rn[m][1] = 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = (m0 + m) * 16 + g + 8 * h;
+#pragma unroll
+          for (int kt = 0; kt < KT; ++kt)
+#pragma unroll
+            for (int r = h; r < 4; r += 2) {
+              const float2 f = unpack2(a2[m][kt][r]);
+              rn[m][h] = fmaf(f.x, f.x, fmaf(f.y, f.y, rn[m][h]));
+              if (row < HW)
+                *reinterpret_cast<uint32_t*>(ybuf + row * RS + kt * 16 + (r >> 1) * 8 + 2 * t) =
+                    a2[m][kt][r];
+            }
+        }
+      }
+      quad_norms<MT>(rn);
+      __syncwarp();
+    }
+#pragma unroll
+    for (int nc = 0; nc < C / NC; ++nc) {
+      float acc[MT][NC / 8][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int j = 0; j < NC / 8; ++j) acc[m][j][0] = acc[m][j][1] = acc[m][j][2] = acc[m][j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk)
+#pragma unroll
+        for (int nn = 0; nn < NC / 16; ++nn) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, brow2 + (kk * 16 * RS + nc * NC + nn * 16) * kB);
+#pragma unroll
+          for (int m = 0; m < MT; ++m) {
+            mma_bf16(acc[m][2 * nn], a2[m][kk], b[0], b[1]);
+            mma_bf16(acc[m][2 * nn + 1], a2[m][kk], b[2], b[3]);
+          }
+        }
+      if (G::kExact)
+        settle<C, MT, NC / 8>(acc, rn, wnorm + C, b2, ybuf, w2, m0, nc * NC, HW, g, t, false);
+#pragma unroll
+      for (int j = 0; j < NC / 8; ++j) {
+        const int col = nc * NC + j * 8 + 2 * t;
+        const float bx = b2[col], by = b2[col + 1];
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = (m0 + m) * 16 + g + 8 * h;
+            if (row < HW) {
+              bf2* xp = reinterpret_cast<bf2*>(act + row * RS + col);
+              const float2 xo = __bfloat1622float2(*xp);
+              const float y0 = round_bf16(acc[m][j][2 * h] + bx);
+              const float y1 = round_bf16(acc[m][j][2 * h + 1] + by);
+              const bf2 xr = __floats2bfloat162_rn(y0 + xo.x, y1 + xo.y);
+              *xp = xr;
+              const float2 xf = __bfloat1622float2(xr);
+              sums[nc * NC / 8 + j][0] += xf.x;
+              sums[nc * NC / 8 + j][1] += xf.y;
+            }
+          }
+      }
+    }
+  }
+  // sum over the 8 rows a warp's lanes hold (lanes of one t)
+#pragma unroll
+  for (int j = 0; j < C / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v = sums[j][e];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (g == 0) red[warp * C + j * 8 + 2 * t + e] = v;
+    }
+}
+
+// The SE gate after the mean z (bf16 values in f32, C of them, written by
+// threads tid < C before the call): h1 = relu(z @ sw1 + sb1), gate =
+// sigmoid(h1 @ sw2 + sb2), each rounded to bf16; red holds the per-warp
+// partial sums ([2][kWarps][C]).
+// twin: the "squeeze-excitation gate" block of convnext_trunk_kernel (which
+// takes the mean z in the same block).
+template <int C>
+__device__ __forceinline__ void se_denses(const float* z, const uint4 (&s1)[Trunk<C>::SE_LOADS],
+                                          const uint4 (&s2)[Trunk<C>::SE_LOADS], float sb1,
+                                          float sb2, float* red, float* h1, float* gate,
+                                          int tid) {
+  float* red2 = red + kWarps * C;
+  __syncthreads();
+  dense_partial<C>(z, s1, red2, tid);
+  __syncthreads();
+  if (tid < C) {
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) a += red2[w * C + tid];
+    h1[tid] = round_bf16(fmaxf(a + sb1, 0.f));
+  }
+  __syncthreads();
+  dense_partial<C>(h1, s2, red, tid);
+  __syncthreads();
+  if (tid < C) {
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) a += red[w * C + tid];
+    gate[tid] = round_bf16(1.f / (1.f + expf(-(a + sb2))));
+  }
+  __syncthreads();
+}
+
+// Channel scale (bf16) of the HW cells of act, in place.
+// twin: the "channel scale" block of convnext_trunk_kernel.
+template <int C>
+__device__ __forceinline__ void scale_channels(bf16* act, const float* gate, int HW, int tid) {
+  constexpr int C8 = Trunk<C>::C8, RS = Trunk<C>::RS;
+  for (int i = tid; i < HW * C8; i += kThreads) {
+    const int c = i % C8;
+    uint4* p = reinterpret_cast<uint4*>(act + (i / C8) * RS + c * 8);
+    uint4 v = *p;
+    bf2* h = reinterpret_cast<bf2*>(&v);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float2 f = __bfloat1622float2(h[q]);
+      h[q] = __floats2bfloat162_rn(f.x * gate[c * 8 + 2 * q], f.y * gate[c * 8 + 2 * q + 1]);
+    }
+    *p = v;
+  }
+}
+
+// This layer's SE weights (16-byte chunks, in registers) and biases.
+// twin: the "this layer's SE weights" block of convnext_trunk_kernel.
+template <int C>
+__device__ __forceinline__ void se_load(const Weights& wt, int l, uint4 (&s1)[Trunk<C>::SE_LOADS],
+                                        uint4 (&s2)[Trunk<C>::SE_LOADS], float& sb1, float& sb2,
+                                        int tid) {
+  const uint4* g1 = reinterpret_cast<const uint4*>(wt.sw1 + size_t(l) * C * C);
+  const uint4* g2 = reinterpret_cast<const uint4*>(wt.sw2 + size_t(l) * C * C);
+#pragma unroll
+  for (int k = 0; k < Trunk<C>::SE_LOADS; ++k) {
+    s1[k] = __ldg(g1 + tid + k * kThreads);
+    s2[k] = __ldg(g2 + tid + k * kThreads);
+  }
+  sb1 = tid < C ? __ldg(wt.sb1 + size_t(l) * C + tid) : 0.f;
+  sb2 = tid < C ? __ldg(wt.sb2 + size_t(l) * C + tid) : 0.f;
+}
+
+// The one-CTA entry.  Its body stays written out as it was before the
+// cluster entry came: the helpers above (column_norms, pointwise, se_load,
+// se_denses, scale_channels) repeat its phases for the cluster entry, and
+// calling them here too moves its register allocation (tools/sass_diff.py
+// --source convnext_trunk.cu shows its SASS unchanged only so).
 template <int C>
 __global__ void __launch_bounds__(kThreads, Trunk<C>::kMinBlocks)
 convnext_trunk_kernel(const bf16* __restrict__ x, Weights wt, bf16* __restrict__ out, int H,
@@ -434,6 +734,7 @@ convnext_trunk_kernel(const bf16* __restrict__ x, Weights wt, bf16* __restrict__
     __syncthreads();
 
     // >> products
+    // twin: column_norms()
     if (G::kExact) {
       for (int i = tid; i < 2 * C; i += kThreads) {
         const bf16* wc = (i < C ? w1 : w2) + i % C;
@@ -462,6 +763,7 @@ convnext_trunk_kernel(const bf16* __restrict__ x, Weights wt, bf16* __restrict__
     // (bf16), residual add (bf16) in place, column sums for the SE mean.
     // With kExact, every output whose bf16 rounding the tensor cores'
     // sum cannot decide is summed again in the plain version's order.
+    // twin: pointwise()
     {
       const int g = lane >> 2, t = lane & 3;
       const int ntiles = (HW + 15) / 16;
@@ -620,6 +922,7 @@ convnext_trunk_kernel(const bf16* __restrict__ x, Weights wt, bf16* __restrict__
 
     // >> se
     // this layer's SE weights and biases, in flight across the barrier
+    // (twin: se_load())
     uint4 s1[SL], s2[SL];
     {
       const uint4* g1 = reinterpret_cast<const uint4*>(wt.sw1 + size_t(l) * C * C);
@@ -642,7 +945,7 @@ convnext_trunk_kernel(const bf16* __restrict__ x, Weights wt, bf16* __restrict__
     // << staging
 
     // >> se
-    // squeeze-excitation gate
+    // squeeze-excitation gate (twin: se_denses(), after the mean)
     {
       float* red2 = red + kWarps * C;
       if (tid < C) {
@@ -675,7 +978,7 @@ convnext_trunk_kernel(const bf16* __restrict__ x, Weights wt, bf16* __restrict__
 
     // >> scale
     // channel scale (bf16) in place; the next layer's first barrier orders
-    // it before the depthwise
+    // it before the depthwise (twin: scale_channels())
     for (int i = tid; i < HW * C8; i += kThreads) {
       const int c = i % C8;
       uint4* p = reinterpret_cast<uint4*>(act + (i / C8) * RS + c * 8);
@@ -696,6 +999,136 @@ convnext_trunk_kernel(const bf16* __restrict__ x, Weights wt, bf16* __restrict__
   {
     uint4* dst = reinterpret_cast<uint4*>(out + size_t(board) * HW * C);
     for (int i = tid; i < HW * C8; i += kThreads)
+      dst[i] = *reinterpret_cast<const uint4*>(act + (i / C8) * RS + (i % C8) * 8);
+  }
+}
+
+// The cluster entry: a cluster of two CTAs a board, CTA r (its rank in the
+// cluster) holding rows [row0, row0 + rows) of the board, row0 = r * top,
+// top = ceil(H / 2).  Shared memory: a window of rows + kR rows (CTA 0: its
+// rows, then the kR halo rows below them; CTA 1: the kR halo rows above
+// its rows, then its rows), the depthwise output of its rows, and the
+// one-CTA kernel's weights and vectors, with `part`, its SE column sums.
+// Both CTAs lay their buffers out alike (sized by the larger half), so an
+// address in one maps to the same buffer in the other.
+template <int C>
+__global__ void __launch_bounds__(kThreads, 1)
+convnext_trunk_cluster_kernel(const bf16* __restrict__ x, Weights wt, bf16* __restrict__ out,
+                              int H, int W, int L) {
+  using G = Trunk<C>;
+  constexpr int C8 = G::C8, RS = G::RS, SL = G::SE_LOADS;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int board = blockIdx.x / 2;
+  const int top = (H + 1) / 2;
+  const int row0 = rank ? top : 0;
+  const int rows = rank ? H - top : top;
+  const int HWl = rows * W;                       // this CTA's cells
+
+  bf16* win = reinterpret_cast<bf16*>(smem_raw);  // [(top + kR) * W][RS] window
+  bf16* act = win + (rank ? kR * W * RS : 0);     // this CTA's rows
+  bf16* halo = rank ? win : win + size_t(HWl) * RS;
+  // the other CTA's rows next to this CTA's, at this offset of its window
+  const size_t other = rank ? size_t(top - kR) * W * RS : size_t(kR) * W * RS;
+  bf16* ybuf = win + size_t(top + kR) * W * RS;   // [top * W][RS] depthwise + BN
+  bf16* w1 = ybuf + size_t(top) * W * RS;         // [C][RS] (in, out)
+  bf16* w2 = w1 + C * RS;
+  bf16* dw = w2 + C * RS;                         // [49][C]
+  float* vec = reinterpret_cast<float*>(dw + kTaps * C);  // bn_s, bn_t, b1, b2
+  float* red = vec + 4 * C;                       // [2][kWarps][C] partial sums
+  float* z = red + 2 * kWarps * C;
+  float* h1 = z + C;
+  float* gate = h1 + C;
+  float* wnorm = gate + C;                        // [2][C] column norms of w1, w2
+  float* part = wnorm + 2 * C;                    // [C] this CTA's SE column sums
+  const float* bn_s = vec;
+  const float* bn_t = vec + C;
+  const float* b1 = vec + 2 * C;
+  const float* b2 = vec + 3 * C;
+
+  {
+    const bf16* src = x + (size_t(board) * H + row0) * W * C;
+    for (int i = tid; i < HWl * C8; i += kThreads)
+      cp_async16(act + (i / C8) * RS + (i % C8) * 8, src + i * 8);
+  }
+  // >> staging
+  stage_layer<C>(wt, 0, dw, w1, w2, vec, tid);
+  // << staging
+  cp_async_commit();
+
+  for (int l = 0; l < L; ++l) {
+    cp_async_wait_all();
+    // both CTAs' rows are this layer's input
+    cluster.sync();
+    {
+      const bf16* src = cluster.map_shared_rank(win + other, rank ^ 1);
+      for (int i = tid; i < kR * W * C8; i += kThreads) {
+        const size_t o = size_t(i / C8) * RS + (i % C8) * 8;
+        *reinterpret_cast<uint4*>(halo + o) = *reinterpret_cast<const uint4*>(src + o);
+      }
+    }
+    // the halo is read before either CTA writes its rows in place
+    cluster.sync();
+
+    // >> products
+    if (G::kExact) column_norms<C>(w1, w2, wnorm, tid);
+    // << products
+
+    // >> depthwise
+    if (W == kStrip)
+      depthwise<C, true, true>(win, dw, ybuf, bn_s, bn_t, rows, W, tid, rank ? kR : 0, rows + kR);
+    else
+      depthwise<C, false, true>(win, dw, ybuf, bn_s, bn_t, rows, W, tid, rank ? kR : 0, rows + kR);
+    // << depthwise
+    __syncthreads();
+
+    // >> products
+    pointwise<C>(act, ybuf, w1, w2, wnorm, b1, b2, red, HWl, warp, lane);
+    // << products
+
+    // >> se
+    uint4 s1[SL], s2[SL];
+    float sb1, sb2;
+    se_load<C>(wt, l, s1, s2, sb1, sb2, tid);
+    // << se
+    __syncthreads();
+
+    // >> staging
+    if (l + 1 < L) stage_layer<C>(wt, l + 1, dw, w1, w2, vec, tid);
+    cp_async_commit();
+    // << staging
+
+    // >> se
+    // squeeze-excitation gate: the mean over the board of both CTAs' sums
+    if (tid < C) {
+      float a = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) a += red[w * C + tid];
+      part[tid] = a;
+    }
+    cluster.sync();
+    if (tid < C)
+      z[tid] = round_bf16((cluster.map_shared_rank(part, 0)[tid] +
+                           cluster.map_shared_rank(part, 1)[tid]) / float(H * W));
+    se_denses<C>(z, s1, s2, sb1, sb2, red, h1, gate, tid);
+    // << se
+
+    // >> scale
+    scale_channels<C>(act, gate, HWl, tid);
+    // << scale
+  }
+  cp_async_wait_all();
+  // no CTA leaves while the other may still read its shared memory
+  cluster.sync();
+
+  {
+    uint4* dst = reinterpret_cast<uint4*>(out + (size_t(board) * H + row0) * W * C);
+    for (int i = tid; i < HWl * C8; i += kThreads)
       dst[i] = *reinterpret_cast<const uint4*>(act + (i / C8) * RS + (i % C8) * 8);
   }
 }
@@ -732,11 +1165,92 @@ cudaError_t occupancy(int H, int W, int* info) {
   info[1] = attr.numRegs;
   info[2] = static_cast<int>(smem + attr.sharedSizeBytes);
   info[3] = static_cast<int>(attr.localSizeBytes);
+  info[4] = 0;
   return err;
+}
+
+// the cluster entry's launch configuration (B boards, two CTAs each)
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  ClusterLaunch(int B, size_t smem, void* stream) {
+    cfg.gridDim = dim3(2 * B);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = static_cast<cudaStream_t>(stream);
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 2;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+template <int C>
+cudaError_t prepare_cluster(int H, int W, size_t* smem) {
+  *smem = Trunk<C>::cluster_bytes(H, W);
+  return cudaFuncSetAttribute(convnext_trunk_cluster_kernel<C>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(*smem));
+}
+
+template <int C>
+cudaError_t launch_cluster(int B, const void* x, const Weights& wt, void* out, int H, int W,
+                           int L, void* stream) {
+  size_t smem;
+  cudaError_t err = prepare_cluster<C>(H, W, &smem);
+  if (err != cudaSuccess) return err;
+  ClusterLaunch cl(B, smem, stream);
+  err = cudaLaunchKernelEx(&cl.cfg, convnext_trunk_cluster_kernel<C>,
+                           static_cast<const bf16*>(x), wt, static_cast<bf16*>(out), H, W, L);
+  if (err != cudaSuccess) return err;
+  // a cluster launch the card refuses never runs: check it here
+  return cudaGetLastError();
+}
+
+template <int C>
+cudaError_t occupancy_cluster(int H, int W, int* info) {
+  size_t smem;
+  cudaError_t err = prepare_cluster<C>(H, W, &smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, convnext_trunk_cluster_kernel<C>);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[0], convnext_trunk_cluster_kernel<C>,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return err;
+  info[1] = attr.numRegs;
+  info[2] = static_cast<int>(smem + attr.sharedSizeBytes);
+  info[3] = static_cast<int>(attr.localSizeBytes);
+  ClusterLaunch cl(1, smem, nullptr);
+  return cudaOccupancyMaxActiveClusters(&info[4], convnext_trunk_cluster_kernel<C>, &cl.cfg);
 }
 
 }  // namespace
 
+namespace {
+
+void set_weights(Weights* wt, const void* dw, const void* bn_s, const void* bn_t, const void* w1,
+                 const void* b1, const void* w2, const void* b2, const void* sw1,
+                 const void* sb1, const void* sw2, const void* sb2) {
+  wt->dw = static_cast<const bf16*>(dw);
+  wt->w1 = static_cast<const bf16*>(w1);
+  wt->w2 = static_cast<const bf16*>(w2);
+  wt->sw1 = static_cast<const bf16*>(sw1);
+  wt->sw2 = static_cast<const bf16*>(sw2);
+  wt->bn_s = static_cast<const float*>(bn_s);
+  wt->bn_t = static_cast<const float*>(bn_t);
+  wt->b1 = static_cast<const float*>(b1);
+  wt->b2 = static_cast<const float*>(b2);
+  wt->sb1 = static_cast<const float*>(sb1);
+  wt->sb2 = static_cast<const float*>(sb2);
+}
+
+}  // namespace
+
+// The one-CTA entry: a CTA a board, C = 64 or 128, where
+// Trunk<C>::bytes(H, W) fits the card's opt-in shared memory.
 extern "C" int ag_convnext_trunk(const void* x, const void* dw, const void* bn_s,
                                  const void* bn_t, const void* w1, const void* b1,
                                  const void* w2, const void* b2, const void* sw1,
@@ -746,25 +1260,36 @@ extern "C" int ag_convnext_trunk(const void* x, const void* dw, const void* bn_s
   if (C != 64 && C != 128) return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0) return 0;
   Weights wt;
-  wt.dw = static_cast<const bf16*>(dw);
-  wt.w1 = static_cast<const bf16*>(w1);
-  wt.w2 = static_cast<const bf16*>(w2);
-  wt.sw1 = static_cast<const bf16*>(sw1);
-  wt.sw2 = static_cast<const bf16*>(sw2);
-  wt.bn_s = static_cast<const float*>(bn_s);
-  wt.bn_t = static_cast<const float*>(bn_t);
-  wt.b1 = static_cast<const float*>(b1);
-  wt.b2 = static_cast<const float*>(b2);
-  wt.sb1 = static_cast<const float*>(sb1);
-  wt.sb2 = static_cast<const float*>(sb2);
+  set_weights(&wt, dw, bn_s, bn_t, w1, b1, w2, b2, sw1, sb1, sw2, sb2);
   if (C == 64) return static_cast<int>(launch<64>(B, x, wt, out, H, W, L, stream));
   return static_cast<int>(launch<128>(B, x, wt, out, H, W, L, stream));
 }
 
-// What the kernel at width C on H x W boards gets from the card:
-// info[0] CTAs per SM, info[1] registers per thread, info[2] shared memory
-// per CTA (bytes), info[3] local memory (spills) per thread (bytes).
-extern "C" int ag_convnext_trunk_occupancy(int C, int H, int W, int* info) {
+// The cluster entry: two CTAs a board, C = 128, boards of at least
+// 2 * kR rows (each half holds the halo the other reads).
+extern "C" int ag_convnext_trunk_cluster(const void* x, const void* dw, const void* bn_s,
+                                         const void* bn_t, const void* w1, const void* b1,
+                                         const void* w2, const void* b2, const void* sw1,
+                                         const void* sb1, const void* sw2, const void* sb2,
+                                         void* out, int B, int H, int W, int C, int L,
+                                         void* stream) {
+  if (C != 128 || H < 2 * kR) return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0) return 0;
+  Weights wt;
+  set_weights(&wt, dw, bn_s, bn_t, w1, b1, w2, b2, sw1, sb1, sw2, sb2);
+  return static_cast<int>(launch_cluster<128>(B, x, wt, out, H, W, L, stream));
+}
+
+// What an entry at width C on H x W boards gets from the card (`ctas` 1:
+// the one-CTA entry, 2: the cluster entry): info[0] CTAs per SM, info[1]
+// registers per thread, info[2] shared memory per CTA (bytes), info[3]
+// local memory (spills) per thread (bytes), info[4] clusters the card
+// holds at once (0 for the one-CTA entry).
+extern "C" int ag_convnext_trunk_occupancy(int C, int H, int W, int ctas, int* info) {
+  if (ctas == 2) {
+    if (C != 128 || H < 2 * kR) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(occupancy_cluster<128>(H, W, info));
+  }
   if (C == 64) return static_cast<int>(occupancy<64>(H, W, info));
   if (C == 128) return static_cast<int>(occupancy<128>(H, W, info));
   return static_cast<int>(cudaErrorInvalidValue);

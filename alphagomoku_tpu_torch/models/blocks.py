@@ -23,12 +23,19 @@ parameters get float32 gradients.
 
 Parameter and buffer names follow the flax module tree so that
 `models/convert.py` maps a flax checkpoint onto `state_dict()` keys.
+
+Under tensor parallelism a `Conv` or `Dense` whose weight holds only this
+rank's slice of its output channels (placed so by
+`parallel.sharding.shard_state_`) is column-parallel: it computes its
+slice and all-gathers the channels, through `ParallelLayer.tensor_parallel`
+(set by `parallel.distributed.make_dp_train_step` for one step).  Every
+other leaf computes replicated.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -94,7 +101,52 @@ class BatchNorm(nn.Module):
         return y.to(self.dtype)
 
 
-class Conv(nn.Module):
+class TensorParallel(NamedTuple):
+    """A tensor-parallel step's view of its `tp` group (the Megatron f/g
+    pair, as callables over torch.distributed)."""
+
+    size: int  # ranks of the group
+    rank: int  # this rank's place in it
+    enter: Callable[[torch.Tensor], torch.Tensor]  # identity; backward all-reduces over tp
+    gather: Callable[[torch.Tensor, int], torch.Tensor]  # the ranks' slices joined along a
+    # dim; backward takes this rank's slice
+
+
+class ParallelLayer(nn.Module):
+    """Base of `Conv` and `Dense`.  Under tensor parallelism
+    (`tensor_parallel` set, by `parallel.distributed.make_dp_train_step`,
+    for the length of one step) a layer whose weight holds a slice of its
+    output channels (dim 0, `tensor_split` over the tp ranks) computes that
+    slice of its output from its whole input, entered through
+    `TensorParallel.enter`, and all-gathers the channels; a grouped conv
+    (the depthwise) takes the input channels of its groups.  A bias is
+    added where its channels are: this rank's slice before the gather (an
+    attention projection's, whose flax shape is 2-D, is placed with its
+    weight), a whole one after it; the same adds as without tensor
+    parallelism."""
+
+    tensor_parallel: TensorParallel | None = None
+
+    @staticmethod
+    def _tp(name: str) -> TensorParallel:
+        tp = ParallelLayer.tensor_parallel
+        if tp is None:
+            raise RuntimeError(f"{name} holds a slice of its output channels outside a "
+                               "tensor-parallel step: gather the state first "
+                               "(parallel.sharding.full_state_dict)")
+        return tp
+
+
+def full_parameter(p: torch.Tensor, size: int, dim: int) -> torch.Tensor:
+    """A parameter that is not a layer's weight (a positional embedding),
+    whole: under tensor parallelism, where it holds a slice of `dim`, its
+    ranks' slices gathered (`TensorParallel.gather`)."""
+    if p.shape[dim] == size:
+        return p
+    return ParallelLayer._tp("a parameter").gather(p, dim % p.dim())
+
+
+class Conv(ParallelLayer):
     """'SAME'-padded conv in `dtype` (flax `nn.Conv`, bias added in `dtype`)."""
 
     def __init__(self, cin: int, cout: int, kernel: int, bias: bool = True, groups: int = 1,
@@ -106,16 +158,30 @@ class Conv(nn.Module):
         self.dtype = dtype
 
     def forward(self, x):
+        weight, groups = self.conv.weight, self.conv.groups
+        cout = self.conv.out_channels
+        local = weight.shape[0]
+        if local != cout:
+            tp = self._tp("a Conv")
+            x = tp.enter(x)
+            if groups > 1:  # this slice's groups, and their input channels
+                per_out, per_in = cout // groups, self.conv.in_channels // groups
+                g0, groups = tp.rank * local // per_out, local // per_out
+                x = x[:, g0 * per_in:(g0 + groups) * per_in]
         y = F.conv2d(
-            x.to(self.dtype), self.conv.weight.to(self.dtype), padding=self.conv.padding,
-            groups=self.conv.groups,
+            x.to(self.dtype), weight.to(self.dtype), padding=self.conv.padding, groups=groups,
         )
-        if self.conv.bias is not None:
-            y = y + self.conv.bias.to(self.dtype)[None, :, None, None]
+        bias = self.conv.bias
+        if bias is not None and bias.shape[0] == y.shape[1]:  # the bias of y's channels
+            y, bias = y + bias.to(self.dtype)[None, :, None, None], None
+        if local != cout:
+            y = self._tp("a Conv").gather(y, 1)
+        if bias is not None:
+            y = y + full_parameter(bias, cout, 0).to(self.dtype)[None, :, None, None]
         return y
 
 
-class Dense(nn.Module):
+class Dense(ParallelLayer):
     """Dense layer in `dtype` (flax `nn.Dense`, bias added in `dtype`)."""
 
     def __init__(self, cin: int, cout: int, bias: bool = True, dtype: torch.dtype = BF16):
@@ -124,9 +190,18 @@ class Dense(nn.Module):
         self.dtype = dtype
 
     def forward(self, x):
-        y = F.linear(x.to(self.dtype), self.linear.weight.to(self.dtype))
-        if self.linear.bias is not None:
-            y = y + self.linear.bias.to(self.dtype)
+        weight, bias = self.linear.weight, self.linear.bias
+        cout = self.linear.out_features
+        sharded = weight.shape[0] != cout
+        if sharded:
+            x = self._tp("a Dense").enter(x)
+        y = F.linear(x.to(self.dtype), weight.to(self.dtype))
+        if bias is not None and bias.shape[0] == y.shape[-1]:  # the bias of y's channels
+            y, bias = y + bias.to(self.dtype), None
+        if sharded:
+            y = self._tp("a Dense").gather(y, y.dim() - 1)
+        if bias is not None:
+            y = y + full_parameter(bias, cout, 0).to(self.dtype)
         return y
 
 
@@ -302,7 +377,7 @@ class TransformerBlock(nn.Module):
     def forward(self, x, train: bool = False):
         b, c, h, w = x.shape
         tokens = x.permute(0, 2, 3, 1).reshape(b, h * w, c)
-        y = self.norm1(tokens) + self.pos_embedding.to(self.dtype)
+        y = self.norm1(tokens) + full_parameter(self.pos_embedding, c, 2).to(self.dtype)
         tokens = tokens + self.attn(y)
         z = self.fc2(torch.relu(self.fc1(self.norm2(tokens))))
         tokens = tokens + z

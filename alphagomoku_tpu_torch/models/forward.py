@@ -5,8 +5,12 @@
 engine take (`net_apply(variables, planes) -> NetOutput`):
 
 - the convnext trunk: `ops.convnext_fused.fused_apply` on a
-  `pack_weights` snapshot, the trunk kernel on the card (at C in
-  `KERNEL_WIDTHS`; another width raises there, ROADMAP.md §2 item 3);
+  `pack_weights` snapshot, the trunk kernel on the card at every width up
+  to 128 and every board up to 20x20 (`convnext_fused.trunk_plan`: widths
+  below 128 on zero channels padded to the kernel's, C = 128 above 252
+  cells on the cluster entry); above 128 filters it raises
+  NotImplementedError (ROADMAP.md §2 item 3), as no configuration of the
+  repo is that wide;
 - every other trunk: `module_apply` on `networks.snapshot(net)`, the
   module's own `forward`, as the reference package calls `net.apply` for
   them (its engine and trainer run those trunks outside any Pallas

@@ -37,7 +37,8 @@ SIGNATURES = {
     "ag_score_backup": [_P] * 7 + [_I, _I, _I, _I, _P],
     "ag_score_scan_occupancy": [_I, _I, _I, _P],
     "ag_convnext_trunk": [_P] * 13 + [_I, _I, _I, _I, _I, _P],
-    "ag_convnext_trunk_occupancy": [_I, _I, _I, _P],
+    "ag_convnext_trunk_cluster": [_P] * 13 + [_I, _I, _I, _I, _I, _P],
+    "ag_convnext_trunk_occupancy": [_I, _I, _I, _I, _P],
 }
 
 

@@ -8,6 +8,20 @@ body's numerics: bf16 storage, f32 accumulation in the depthwise taps and
 the products, BatchNorm folded to a per-channel scale and shift (inference
 only), and bf16 casts at the same points.
 
+The kernel is built for the widths `KERNEL_WIDTHS` (64 and 128); like the
+Pallas kernel, the wrapper takes any C up to 128 and any board up to 20x20.
+`trunk_plan(C, H, W)` picks the launch by the shape alone:
+
+- C below 128 runs at the next built width, `kernel_width(C)`, on channels
+  padded with zeros (`pad_trunk`), which is exact: a zero channel stays
+  zero through every block and adds +0 to every real channel's sums;
+- one CTA holds a board (`convnext_trunk_kernel<C>`) where its shared
+  memory fits the card (`SM90_SMEM_OPTIN`); C = 128 on boards above 252
+  cells (16x16 to 20x20) takes a cluster of two CTAs a board instead
+  (`convnext_trunk_cluster_kernel<128>`), each holding half of the rows.
+
+C above 128 raises NotImplementedError (ROADMAP.md §2 item 3).
+
 `fused_apply(weights, planes)` is the full ConvNextPVQMraw forward (stem,
 fused trunk, heads) with its weights passed in explicitly as a
 `FusedWeights` (built by `pack_weights` from a snapshot of the network).
@@ -29,7 +43,8 @@ __all__ = [
     "TrunkWeights", "fold_bn", "pack_trunk_weights", "fused_trunk",
     "fused_trunk_plain", "FusedWeights", "pack_weights", "fused_apply",
     "trunk_occupancy", "trunk_smem_bytes", "BLOCK_LIMITS", "TRUNK_LIMITS", "HEAD_LIMITS",
-    "KERNEL_WIDTHS", "SM90_SMEM_OPTIN",
+    "KERNEL_WIDTHS", "SM90_SMEM_OPTIN", "TrunkPlan", "trunk_plan", "kernel_width",
+    "pad_trunk", "pad_trunk_weights",
 ]
 
 KERNEL_WIDTHS = (64, 128)  # the filter counts csrc/convnext_trunk.cu is built for
@@ -72,7 +87,8 @@ class TrunkWeights(NamedTuple):
 @torch.no_grad()
 def pack_trunk_weights(net: AGNetwork) -> TrunkWeights:
     """Stack the per-block parameters into kernel-friendly tensors on the
-    network's device."""
+    network's device; on the card, padded with zeros to the width the
+    kernel runs at (`kernel_width`, `pad_trunk_weights`)."""
     cols = {k: [] for k in TrunkWeights._fields}
     for blk in net.blocks:
         cols["dw"].append(blk.dw.conv.weight[:, 0].permute(1, 2, 0))  # (7, 7, C)
@@ -88,10 +104,58 @@ def pack_trunk_weights(net: AGNetwork) -> TrunkWeights:
         cols["sw2"].append(blk.se.fc2.linear.weight.t())
         cols["sb2"].append(blk.se.fc2.linear.bias)
     bf = {"dw", "w1", "w2", "sw1", "sw2"}
-    return TrunkWeights(**{
+    w = TrunkWeights(**{
         k: torch.stack(v).to(BF16 if k in bf else torch.float32).contiguous()
         for k, v in cols.items()
     })
+    if w.dw.device.type == "cuda":
+        w = pad_trunk_weights(w, kernel_width(w.dw.shape[-1]))
+    return w
+
+
+def kernel_width(c: int) -> int:
+    """The width the trunk kernel runs a C-filter trunk at: the next built
+    width (`KERNEL_WIDTHS`).  C above 128 raises NotImplementedError."""
+    for width in KERNEL_WIDTHS:
+        if c <= width:
+            return width
+    raise NotImplementedError(
+        f"fused_trunk kernel takes up to {KERNEL_WIDTHS[-1]} filters, got {c}: w1 and w2 of a "
+        "wider trunk do not fit one CTA's shared memory (ROADMAP.md §2 item 3: trunk widths "
+        "above 128)"
+    )
+
+
+def pad_trunk_weights(w: TrunkWeights, width: int) -> TrunkWeights:
+    """`w` with every channel dimension padded with zeros to `width`: the
+    taps, the folded BN, both dims of the four matrices and the biases.
+    A padded channel's BN scale and shift are 0, so it is 0 after the
+    depthwise and the BN, after relu(0 + 0), after the residual add and
+    after its SE gate (0.5 x 0), and its zero rows add +0 to every real
+    channel's sums."""
+    c = w.dw.shape[-1]
+    if c == width:
+        return w
+    pad = width - c
+
+    def one(t):
+        if t.dim() == 4:  # taps [L, 7, 7, C]
+            return torch.nn.functional.pad(t, (0, pad)).contiguous()
+        if t.dim() == 3:  # [L, C, C] (in, out)
+            return torch.nn.functional.pad(t, (0, pad, 0, pad)).contiguous()
+        return torch.nn.functional.pad(t, (0, pad)).contiguous()  # [L, C]
+
+    return TrunkWeights(*(one(t) for t in w))
+
+
+def pad_trunk(x: torch.Tensor, w: TrunkWeights, width: int) -> tuple[torch.Tensor, TrunkWeights]:
+    """The trunk's input [B, H, W, C] and weights padded with zero channels
+    to `width` (either left as it is where it already has that width): the
+    trunk of the padded pair, cut to the first C channels, is the trunk of
+    the pair (`pad_trunk_weights` says why)."""
+    if x.shape[-1] != width:
+        x = torch.nn.functional.pad(x, (0, width - x.shape[-1])).contiguous()
+    return x, pad_trunk_weights(w, width)
 
 
 def _products(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -106,7 +170,12 @@ def _products(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def fused_trunk_plain(x: torch.Tensor, w: TrunkWeights) -> torch.Tensor:
-    """Plain PyTorch version of the fused trunk: [B, H, W, C] bf16 -> same."""
+    """Plain PyTorch version of the fused trunk: [B, H, W, C] bf16 -> same.
+    Weights padded wider than C (`pack_trunk_weights` on the card) run on
+    the input padded to their width, cut back to C."""
+    if w.dw.shape[-1] != x.shape[-1]:
+        c = x.shape[-1]
+        return fused_trunk_plain(*pad_trunk(x, w, w.dw.shape[-1]))[..., :c].contiguous()
     bsz, h, wd, c = x.shape
     k = w.dw.shape[1]
     r = k // 2
@@ -141,71 +210,118 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"fused_trunk: {name} must be contiguous and 16-byte aligned")
 
 
+class TrunkPlan(NamedTuple):
+    """How the trunk kernel runs a shape (`trunk_plan`)."""
+
+    entry: str  # the kernel launched
+    width: int  # the channels it runs at (`kernel_width`)
+    ctas: int  # CTAs a board
+    smem_bytes: int  # dynamic shared memory of one CTA
+
+
+def _one_cta_bytes(c: int, h: int, w: int) -> int:
+    """`Trunk<C>::bytes`: two activation buffers and the two product weights
+    in bf16 rows of C + 8, the depthwise taps, and the f32 vectors of the
+    BN, biases and SE."""
+    rs = c + 8
+    return (2 * h * w * rs + 2 * c * rs + 49 * c) * 2 + (4 * c + 2 * 8 * c + 3 * c + 2 * c) * 4
+
+
+def _cluster_cta_bytes(c: int, h: int, w: int) -> int:
+    """`Trunk<C>::cluster_bytes`: a CTA of the two-CTA cluster holds its
+    half of the rows (the larger half, ceil(H / 2)) and the 3 halo rows of
+    the other half, the depthwise output of its rows, its own copy of the
+    weights and vectors, and the f32 column sums it shares for the SE
+    mean."""
+    rs = c + 8
+    top = (h + 1) // 2
+    return ((2 * top + 3) * w * rs + 2 * c * rs + 49 * c) * 2 + (
+        4 * c + 2 * 8 * c + 3 * c + 2 * c + c) * 4
+
+
+def trunk_plan(c: int, h: int, w: int) -> TrunkPlan:
+    """The launch of the trunk kernel for a C-filter trunk on h x w boards,
+    by the shape alone: the width `kernel_width(c)`; one CTA a board where
+    its shared memory fits `SM90_SMEM_OPTIN`, else (C = 128 above 252
+    cells: every board up to 20x20 has one) a cluster of two CTAs a board.
+    Raises NotImplementedError for C above 128 and for a board that fits
+    neither."""
+    width = kernel_width(c)
+    one = _one_cta_bytes(width, h, w)
+    if one <= SM90_SMEM_OPTIN:
+        return TrunkPlan("convnext_trunk_kernel", width, 1, one)
+    two = _cluster_cta_bytes(width, h, w)
+    if width != 128 or h < 6 or two > SM90_SMEM_OPTIN:
+        raise NotImplementedError(f"fused_trunk kernel: no entry for C={c} on {h}x{w} boards")
+    return TrunkPlan("convnext_trunk_cluster_kernel", width, 2, two)
+
+
 def fused_trunk(x: torch.Tensor, w: TrunkWeights) -> torch.Tensor:
     """Run the whole ConvNext block stack on a [B, H, W, C] bf16 activation:
-    the CUDA kernel for CUDA tensors, `fused_trunk_plain` for CPU tensors."""
+    the CUDA kernel for CUDA tensors (`trunk_plan`: C below the kernel's
+    width on zero channels, `pad_trunk`), `fused_trunk_plain` for CPU
+    tensors."""
     if x.device.type == "cpu":
         return fused_trunk_plain(x, w)
     bsz, h, wd, c = x.shape
-    if c not in KERNEL_WIDTHS:
-        raise NotImplementedError(
-            f"fused_trunk kernel takes C in {KERNEL_WIDTHS} filters, got {c} (ROADMAP.md, "
-            "'TPU kernels to port': other trunk widths)"
-        )
-    smem = trunk_smem_bytes(c, h, wd)
-    if smem > SM90_SMEM_OPTIN:
-        raise NotImplementedError(
-            f"fused_trunk kernel at C={c} on {h}x{wd} boards needs {smem} bytes of shared "
-            f"memory per block, the card allows {SM90_SMEM_OPTIN} (ROADMAP.md, 'TPU kernels "
-            "to port', entry 2: the trunk at C = 128 on 20x20 boards)"
-        )
+    plan = trunk_plan(c, h, wd)
     if x.device.type != "cuda":
         raise ValueError(f"fused_trunk: unsupported device {x.device}")
     nl = w.dw.shape[0]
     if w.dw.shape[1:3] != (7, 7):
         raise ValueError(f"fused_trunk: depthwise kernel {tuple(w.dw.shape[1:3])}, expected 7x7")
+    if w.dw.shape[-1] not in (c, plan.width):
+        raise ValueError(f"fused_trunk: weights of {w.dw.shape[-1]} channels for an input of {c}")
+    cp = plan.width
+    x, w = pad_trunk(x, w, cp)
     dev = x.device
-    _check("x", x, BF16, (bsz, h, wd, c), dev)
+    _check("x", x, BF16, (bsz, h, wd, cp), dev)
     for name in TrunkWeights._fields:
         t = getattr(w, name)
         if name == "dw":
-            _check(name, t, BF16, (nl, 7, 7, c), dev)
+            _check(name, t, BF16, (nl, 7, 7, cp), dev)
         elif t.dim() == 3:
-            _check(name, t, BF16, (nl, c, c), dev)
+            _check(name, t, BF16, (nl, cp, cp), dev)
         else:
-            _check(name, t, torch.float32, (nl, c), dev)
+            _check(name, t, torch.float32, (nl, cp), dev)
     out = torch.empty_like(x)
     lib = _build.library()
-    err = lib.ag_convnext_trunk(
+    launch = lib.ag_convnext_trunk if plan.ctas == 1 else lib.ag_convnext_trunk_cluster
+    err = launch(
         x.data_ptr(), *(getattr(w, n).data_ptr() for n in TrunkWeights._fields),
-        out.data_ptr(), bsz, h, wd, c, nl, torch.cuda.current_stream(dev).cuda_stream,
+        out.data_ptr(), bsz, h, wd, cp, nl, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "fused_trunk")
     fused_trunk.launches += 1
-    return out
+    if plan.ctas == 2:
+        fused_trunk.cluster_launches += 1
+    return out if cp == c else out[..., :c].contiguous()
 
 
-fused_trunk.launches = 0
+fused_trunk.launches = 0  # every launch, of either entry
+fused_trunk.cluster_launches = 0  # the cluster entry's
 
 
 def trunk_smem_bytes(c: int, h: int, w: int) -> int:
-    """Dynamic shared memory of one CTA of the trunk kernel at width `c` on
-    h x w boards (`Trunk<C>::bytes` of csrc/convnext_trunk.cu): two
-    activation buffers and the two product weights in bf16 rows of C + 8,
-    the depthwise taps, and the f32 vectors of the BN, biases and SE."""
-    rs = c + 8
-    return (2 * h * w * rs + 2 * c * rs + 49 * c) * 2 + (4 * c + 2 * 8 * c + 3 * c + 2 * c) * 4
+    """Dynamic shared memory of one CTA of the trunk kernel's entry for a
+    C-filter trunk on h x w boards (`trunk_plan`)."""
+    return trunk_plan(c, h, w).smem_bytes
 
 
 def trunk_occupancy(c: int, h: int = 15, w: int = 15) -> dict:
-    """What the trunk kernel at width `c` on h x w boards gets from the
-    current card: CTAs per SM, registers per thread, shared memory per CTA
-    (bytes) and local memory per thread (bytes; spills)."""
+    """What the trunk kernel's entry for a C-filter trunk on h x w boards
+    (`trunk_plan`) gets from the current card: CTAs per SM, registers per
+    thread, shared memory per CTA (bytes), local memory per thread (bytes;
+    spills) and, for the cluster entry, the clusters the card holds at
+    once (0 for the one-CTA entry)."""
     import ctypes
 
-    info = (ctypes.c_int * 4)()
-    _build.check(_build.library().ag_convnext_trunk_occupancy(c, h, w, info), "trunk_occupancy")
-    return dict(zip(("ctas_per_sm", "registers", "smem_bytes", "local_bytes"), info))
+    plan = trunk_plan(c, h, w)
+    info = (ctypes.c_int * 5)()
+    _build.check(_build.library().ag_convnext_trunk_occupancy(
+        plan.width, h, w, plan.ctas, info), "trunk_occupancy")
+    return dict(zip(("ctas_per_sm", "registers", "smem_bytes", "local_bytes", "clusters"), info),
+                entry=plan.entry, width=plan.width)
 
 
 # ---------------------------------------------------------------------------

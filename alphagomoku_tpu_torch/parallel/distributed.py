@@ -18,12 +18,20 @@ between CPU processes.
   part of the global loss, and the gradients are all-reduce-SUMMED.  The
   replicated train state (parameters, BatchNorm statistics, optimizer
   moments) stays bitwise identical on every rank.
+- on a (dp, tp) mesh the tp ranks of one dp coordinate take the same
+  slice of the batch.  With a replicated state they run the same step;
+  with a state placed by `param_shardings(tensor_parallel=True)`
+  (`sharding.shard_state_`) the sharded layers are column-parallel
+  (`models.blocks.ParallelLayer`): each rank computes its slice of their
+  output channels and all-gathers them (`_GatherTP`: backward takes this
+  rank's slice), their input entering through `_EnterTP` (backward
+  all-reduces over tp), so the rest of the step is replicated.
 - checkpoint/metadata files are written by the coordinator only
   (`is_coordinator`), with `barrier()` ordering writers before readers.
 
 `make_rl_round` packages one actor -> learner round: self-play of
-`batch_per_host` boards on each rank, `make_targets`, one DP train step.
-A step at tp > 1 is not ported (`TP_NOT_PORTED`)."""
+`batch_per_host` boards on each dp coordinate, `make_targets`, one train
+step over the mesh."""
 
 from __future__ import annotations
 
@@ -41,11 +49,6 @@ from ..search import mcts
 from ..selfplay import SelfplayConfig, make_targets, play_games
 from ..training import train as T
 from .sharding import make_mesh, mesh_device, mesh_size
-
-TP_NOT_PORTED = (
-    "a train step at tp > 1 (tensor-parallel kernels) is not ported (ROADMAP.md, 'Modules to "
-    "port', item 16: tensor parallelism)"
-)
 
 
 def initialize(
@@ -95,6 +98,14 @@ def fold_seed(seed: int, *data: int) -> int:
     word = np.random.SeedSequence([int(seed), *(int(d) for d in data)]).generate_state(
         1, np.uint64)[0]
     return int(word >> np.uint64(1))
+
+
+def dp_fold(mesh, seed: int) -> int:
+    """Per-dp-coordinate generator seed: `fold_seed(seed, dp rank)`.  The
+    tp ranks of one dp coordinate draw alike (they hold one slice of the
+    batch); at tp = 1 the dp rank is the process's rank, and this is
+    `host_fold(seed)`."""
+    return fold_seed(seed, mesh.get_local_rank("dp"))
 
 
 def host_fold(seed: int) -> int:
@@ -154,6 +165,48 @@ class _AllReduceSum(torch.autograd.Function):
         return g, None
 
 
+class _EnterTP(torch.autograd.Function):
+    """The input of a column-parallel layer (Megatron's f): the identity;
+    its gradient, this rank's part from its slice of the channels, summed
+    over the tp group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _GatherTP(torch.autograd.Function):
+    """The output of a column-parallel layer (Megatron's g): the tp ranks'
+    slices joined along `dim` (all_gather); its gradient, this rank's
+    slice of the whole output's (the same on every tp rank, as what
+    follows runs replicated)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, size, rank):
+        ctx.dim, ctx.size, ctx.rank = dim, size, rank
+        parts = [torch.empty_like(x) for _ in range(size)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.tensor_split(ctx.size, ctx.dim)[ctx.rank].contiguous(), None, None, None, None
+
+
+def _tensor_parallel(mesh) -> blocks.TensorParallel:
+    group, size, rank = mesh.get_group("tp"), mesh_size(mesh, "tp"), mesh.get_local_rank("tp")
+    return blocks.TensorParallel(
+        size, rank, lambda x: _EnterTP.apply(x, group),
+        lambda y, dim: _GatherTP.apply(y, dim, group, size, rank))
+
+
 def _all_reduce(group):
     def reduce(x: torch.Tensor) -> torch.Tensor:
         y = x.detach().clone()
@@ -164,11 +217,13 @@ def _all_reduce(group):
 
 
 @contextlib.contextmanager
-def _data_parallel(group, share: float):
+def _parallel(group, share: float, tp: blocks.TensorParallel | None = None):
     """For the length of one step: loss denominators and gradients summed
-    over `group` (`train._DP`), and BatchNorm's moments the global batch's
-    (`blocks.BatchNorm.sync_moments`): each rank's mean and E[x^2] weighted
-    by its share of the global batch, then summed, differentiably."""
+    over the dp `group` (`train._DP`), BatchNorm's moments the global
+    batch's (`blocks.BatchNorm.sync_moments`): each rank's mean and E[x^2]
+    weighted by its share of the global batch, then summed,
+    differentiably; and, at tp > 1, the tp group for the column-parallel
+    layers (`blocks.ParallelLayer.tensor_parallel`)."""
 
     def sync(mean, sq):
         both = _AllReduceSum.apply(torch.stack([mean, sq]) * share, group)
@@ -176,26 +231,30 @@ def _data_parallel(group, share: float):
 
     T._DP = T.DataParallel(_all_reduce(group), share)
     blocks.BatchNorm.sync_moments = sync
+    blocks.ParallelLayer.tensor_parallel = tp
     try:
         yield
     finally:
         T._DP = None
         blocks.BatchNorm.sync_moments = None
+        blocks.ParallelLayer.tensor_parallel = None
 
 
 def make_dp_train_step(train_step: Callable, mesh) -> Callable:
     """A train step (`training.train.make_train_step`'s, or the distill
-    step's) run data-parallel over the mesh's `dp` axis:
+    step's) run over the mesh, data-parallel over its `dp` axis:
     `dp_step(state, [teacher,] batch, modes) -> (state, parts)`, where
-    `batch` is this rank's `GlobalBatch` and `modes` the symmetries of the
-    whole global batch, drawn alike on every rank (each rank takes its
-    slice).  The step's BatchNorm moments and loss denominators are the
-    global batch's, its gradients are summed over the ranks, and `parts`
-    are the global batch's losses, equal on every rank."""
-    if mesh_size(mesh, "tp") > 1:
-        raise NotImplementedError(TP_NOT_PORTED)
+    `batch` is this rank's `GlobalBatch` (the same on the tp ranks of one
+    dp coordinate) and `modes` the symmetries of the whole global batch,
+    drawn alike on every rank (each rank takes its slice).  The step's
+    BatchNorm moments and loss denominators are the global batch's, its
+    gradients are summed over the dp ranks, and `parts` are the global
+    batch's losses, equal on every rank.  At tp > 1 a state placed by
+    `sharding.shard_state_` runs its sharded layers column-parallel over
+    tp; a replicated state runs the same step on every tp rank."""
     group = mesh.get_group("dp")
     dp = mesh_size(mesh, "dp")
+    tp = _tensor_parallel(mesh) if mesh_size(mesh, "tp") > 1 else None
 
     def dp_step(state, *args):
         *extra, batch, modes = args
@@ -204,7 +263,7 @@ def make_dp_train_step(train_step: Callable, mesh) -> Callable:
         offset = getattr(batch, "offset", local * mesh.get_local_rank("dp"))
         if modes is not None:
             modes = modes[offset:offset + local]
-        with _data_parallel(group, local / global_size):
+        with _parallel(group, local / global_size, tp):
             state, parts = train_step(state, *extra, batch, modes)
         names = list(parts)
         summed = _all_reduce(group)(torch.stack([parts[k] for k in names]))
@@ -225,15 +284,17 @@ def make_rl_round(
     mesh=None,
     tp: int = 1,
 ):
-    """One actor -> learner round over the mesh: each rank plays
+    """One actor -> learner round over the mesh: each dp coordinate plays
     `batch_per_host` games on its device, turns them into targets
-    (`make_targets`) and takes one DP train step on the global batch of
-    every rank's samples.
+    (`make_targets`) and takes one train step (`make_dp_train_step`) on
+    the global batch of every dp coordinate's samples; the train state
+    may be replicated or placed by `sharding.shard_state_`.
 
     Returns (round_fn, mesh).  round_fn(variables_infer, train_state, seed)
     -> (train_state, loss_parts): `seed` must be the same on every rank;
-    the games come from a generator seeded `host_fold(fold_seed(seed, 0))`
-    (other games on each rank), the symmetries from one seeded
+    the games come from a generator seeded `dp_fold(mesh, fold_seed(seed,
+    0))` (other games on each dp coordinate, the same on its tp ranks;
+    at tp = 1 `host_fold`'s seed), the symmetries from one seeded
     `fold_seed(seed, 1)` (alike on every rank)."""
     if mesh is None:
         mesh = make_mesh(tp=tp)
@@ -241,7 +302,7 @@ def make_rl_round(
     dev = mesh_device(mesh)
 
     def rl_round(variables_infer: Any, train_state: Any, seed: int):
-        games = torch.Generator(device=dev).manual_seed(host_fold(fold_seed(seed, 0)))
+        games = torch.Generator(device=dev).manual_seed(dp_fold(mesh, fold_seed(seed, 0)))
         result = play_games(net_apply, variables_infer, tables, mcfg, scfg, games,
                             batch_per_host, rows, cols, device=dev)
         batch = global_batch_from_local(mesh, make_targets(result, rows * cols))

@@ -59,6 +59,7 @@ from ..models.convert import from_flax, to_flax
 from ..models.forward import net_apply_for, network_apply
 from ..models.networks import AGNetwork, create_network, init_flax_
 from ..parallel import distributed as D
+from ..parallel.sharding import full_state_dict
 from ..search import mcts
 from ..selfplay import (
     SelfplayConfig,
@@ -179,7 +180,8 @@ class TrainingManager:
         if cfg.distributed:
             from ..parallel import make_mesh
 
-            self.mesh = make_mesh()  # one dp axis over every rank's device
+            # one dp axis over every rank's device
+            self.mesh = make_mesh(device=self.device.type)
             if cfg.train_batch_size % self.n_hosts != 0:
                 raise ValueError(
                     f"train_batch_size={cfg.train_batch_size} not divisible "
@@ -252,8 +254,11 @@ class TrainingManager:
         return net.to(self.device)
 
     def save_checkpoint(self, n: int) -> None:
+        # a state placed over tp (`parallel.sharding.shard_state_`) is
+        # gathered first, on every rank, so the file is the whole network's
+        state = full_state_dict(self.net)
         if self.is_coordinator:
-            checkpoint.save(self.checkpoint_path(n), to_flax(self.net.state_dict()))
+            checkpoint.save(self.checkpoint_path(n), to_flax(state))
         self.metadata["last_checkpoint"] = n
         if self.metadata["best_checkpoint"] < 0:
             self.metadata["best_checkpoint"] = n

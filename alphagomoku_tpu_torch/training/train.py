@@ -181,12 +181,17 @@ _NEG = -1e9  # masked logit: a target of 0 on an illegal cell contributes 0
 
 
 class DataParallel(NamedTuple):
-    """A data-parallel step's view of its process group, set in `_DP` by
+    """A data-parallel step's view of its dp process group, set in `_DP` by
     `parallel.distributed.make_dp_train_step` for the length of one step:
     each rank holds a slice of the global batch, and the step computes
-    what one process computes on the whole of it."""
+    what one process computes on the whole of it.  Over tp, where the
+    state is sharded, the column-parallel layers
+    (`models.blocks.ParallelLayer.tensor_parallel`) compute slices of their
+    channels, and each rank steps and decays only its slices of the
+    sharded parameters (the optimizer is elementwise; nothing in the step
+    reduces over all parameters)."""
 
-    all_reduce: Callable[[torch.Tensor], torch.Tensor]  # sum over the group
+    all_reduce: Callable[[torch.Tensor], torch.Tensor]  # sum over the dp group
     share: float  # this rank's samples over the global batch's
 
 
@@ -269,7 +274,8 @@ def _apply_update(state: TrainState, tx: RAdam, total: torch.Tensor) -> None:
     """Backward into each parameter's `.grad` (left there for the caller),
     then the optimizer step in place.  Under data parallelism the ranks'
     gradients are summed first (each rank's loss is its part of the global
-    batch's), in one all-reduce."""
+    batch's), in one all-reduce over dp; a sharded parameter's gradient is
+    this rank's slice, summed with the same slice of the other dp ranks."""
     params = list(state.net.parameters())
     for p in params:
         p.grad = None

@@ -125,8 +125,8 @@ Phases, one line each (any failure exits non-zero):
      the engine's tree (its most-visited path, and a full 40-level path:
      both chunks of `score_backup_kernel<32>`), and the trunk at B = 1 on
      15x15 and on 20x20 (the 20x20 engine with seeded 6x64 weights, one
-     search), each against its plain version; the trunk at C = 128 on
-     20x20 must raise (its shared memory exceeds the card's); one
+     search), each against its plain version (C = 128 on 20x20: phase
+     24); one
      realtime search over the YixinBoard protocol; the benchmark sweep
      and config (`engine/benchmark.py`, written under
      build/chip_smoke/engine_benchmark/);
@@ -176,7 +176,7 @@ Phases, one line each (any failure exits non-zero):
      `TUNE_SIMS` sims); last `PHASE22_PROFILE_STEPS` step of the
      leaf_batch 4 search traced, and its ms and launches per step printed
      beside phases 7 and 8's at S = 1;
- 23. the last modules (run after phase 21, last) - network_23 against
+ 23. the last modules (run after phase 21) - network_23 against
      AnchorV1 (`eval/anchor.py`) through `play_multi_match` under
      `ANCHOR_MCFG` (VCT leaf solver, D = 32: score_backup<32> for both
      sides), `ANCHOR_PAIRS` openings on 15x15 at `ANCHOR_MATCH_SIMS` sims
@@ -189,6 +189,24 @@ Phases, one line each (any failure exits non-zero):
      batch and modes (parameters, BatchNorm statistics, gradients,
      losses), both timed, no kernel launched; one `make_rl_round`
      (`RL_BATCH` boards, `RL_SIMS` sims, `RL_MOVES` moves, one DP step);
+ 24. trunk shapes (run after phase 11) - the trunk kernel at the widths and
+     boards of `TRUNK_SHAPES`, each a seeded `init_random_` network built
+     for its board, as in phase 5: C = 16 and 96 (zero channels padded to
+     64 and 128), C = 128 on 16x16 and 20x20 (the cluster entry,
+     `convnext_trunk_cluster_kernel<128>`: two CTAs a board), each held
+     within TRUNK_LIMITS of the plain trunk and timed beside it, the
+     library trunk (unpadded weights) and the bound (the trunk's own C),
+     with the entry's occupancy; then one simulation step of the 20x20
+     8x128 network (`SEARCH20_BATCH` boards), every trunk launch the
+     cluster entry's, and `SEARCH20_TIMED` warm steps timed after it;
+ 25. tensor parallelism (last) - `tools/dryrun_multichip.py` at n = 2 as
+     child processes on this one card over gloo with CUDA tensors, mesh
+     (1, 2): the float32 flagship's column-parallel step held against the
+     plain step on the card within tests/test_torch_distributed.py's
+     constants, both timed; the flagship's bf16 train step on the
+     reference's batch of 256 with the state placed over tp; one
+     `make_rl_round` of a 2x16 network (8 sims, 48 moves; the trunk kernel
+     at 16 channels padded to 64, score_backup), its launches on rank 0;
 then a `kernels` JSON line and, last, {"ok": true, "device": {...}}.
 
 A kernel's `ms` is its device time per launch: for score_scan on the
@@ -273,6 +291,25 @@ def time_cuda(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _counts() -> dict:
+    """Every kernel wrapper's launch count, by the name the `kernels` line
+    reads it under (the wide scan entries count with their wrappers)."""
+    from alphagomoku_tpu_torch.ops import convnext_fused as CF
+    from alphagomoku_tpu_torch.ops import score_scan as SSM
+
+    return {"score_scan": SSM.score_scan.launches, "score_backup": SSM.score_backup.launches,
+            "fused_trunk": CF.fused_trunk.launches,
+            "fused_trunk_cluster": CF.fused_trunk.cluster_launches}
+
+
+def _zero_counts() -> None:
+    from alphagomoku_tpu_torch.ops import convnext_fused as CF
+    from alphagomoku_tpu_torch.ops import score_scan as SSM
+
+    SSM.score_scan.launches = SSM.score_backup.launches = 0
+    CF.fused_trunk.launches = CF.fused_trunk.cluster_launches = 0
 
 
 def bench_boards(batch: int, seed: int = 0):
@@ -421,7 +458,8 @@ def backup_phase(tree: dict, tag: str, kernel: str = "score_backup_kernel",
 
 def library_trunk(x, tw):
     """The fused trunk's function through PyTorch's library calls (bf16
-    depthwise conv2d + matmul): a yardstick, never used by the port."""
+    depthwise conv2d + matmul), with weights `tw` of the input's own width
+    (`unpadded`): a yardstick, never used by the port."""
     import torch
     import torch.nn.functional as F
 
@@ -440,6 +478,16 @@ def library_trunk(x, tw):
         g = torch.sigmoid(torch.matmul(h1, tw.sw2[l]).float() + tw.sb2[l]).to(bf)
         x = x4 * g[:, None, None, :]
     return x
+
+
+def unpadded(tw, c: int):
+    """Trunk weights cut back to their first `c` channels: the unpadded
+    weights of a C-filter trunk that `pack_trunk_weights` padded on the
+    card (the cut channels are zeros)."""
+    from alphagomoku_tpu_torch.ops import convnext_fused as CF
+
+    return CF.TrunkWeights(*((t[..., :c] if t.dim() != 3 else t[:, :c, :c]).contiguous()
+                             for t in tw))
 
 
 def held(ref, out, limits: dict) -> dict:
@@ -511,18 +559,22 @@ def trunk_phase(net, planes, tag: str) -> dict:
         trunk_ms = time_cuda(lambda: [CF.fused_trunk(x, tw) for _ in range(20)], reps=3) / 20
         trunk_call_ms = time_cuda(lambda: CF.fused_trunk(x, tw))
         trunk_plain_ms = time_cuda(lambda: CF.fused_trunk_plain(x, tw), reps=5)
-        lib_out = library_trunk(x, tw)
-        trunk_lib_ms = time_cuda(lambda: library_trunk(x, tw))
+        # the library computes the C-filter function: no padded channels
+        tw_c = unpadded(tw, x.shape[-1])
+        lib_out = library_trunk(x, tw_c)
+        trunk_lib_ms = time_cuda(lambda: library_trunk(x, tw_c))
     L, (B, h, w, C) = tw.dw.shape[0], x.shape
     occ = CF.trunk_occupancy(C, h, w)
-    print(f"{tag} occupancy: C={C} {h}x{w}: {occ['registers']} registers per thread, "
-          f"{occ['ctas_per_sm']} CTAs per SM, {occ['smem_bytes']} bytes of shared memory per "
-          f"CTA, {occ['local_bytes']} bytes of local memory (spills) per thread", flush=True)
+    print(f"{tag} occupancy: C={C} {h}x{w}: {occ['entry']} at width {occ['width']}, "
+          f"{occ['registers']} registers per thread, {occ['ctas_per_sm']} CTAs per SM"
+          + (f" ({occ['clusters']} clusters of 2 at once)" if occ["clusters"] else "")
+          + f", {occ['smem_bytes']} bytes of shared memory per CTA, {occ['local_bytes']} bytes "
+          "of local memory (spills) per thread", flush=True)
+    # the bound of the trunk's own function, at its C (a padded width's
+    # extra channels are the kernel's cost, not the function's work)
     dw_flops = 2.0 * 49 * h * w * C * B * L
     mm_flops = (2.0 * 2 * h * w * C * C + 2.0 * 2 * C * C) * B * L
-    trunk_bytes = 2 * x.numel() * x.element_size() + sum(
-        t.numel() * t.element_size() for t in tw
-    )
+    trunk_bytes = 2 * x.numel() * x.element_size() + L * (49 * C * 2 + 4 * C * C * 2 + 6 * C * 4)
     ops_ms = (dw_flops / F32_FLOPS + mm_flops / BF16_TC_FLOPS) * 1e3
     bytes_ms = trunk_bytes / HBM_BPS * 1e3
     trunk_bound_ms = max(ops_ms, bytes_ms)
@@ -568,7 +620,8 @@ def network_phase(weights, planes, tag: str) -> None:
 
 
 def search_phase(weights, tables, cfg, boards, stm, sims: int, tag: str, net_apply=None,
-                 trunk_launches=None, raw_input: bool = True, **search_kw):
+                 trunk_launches=None, raw_input: bool = True, cluster_trunk: bool = False,
+                 **search_kw):
     """One `run_search` of `sims` simulations (through `net_apply`, by
     default `fused_apply`; `search_kw` passed on) with the kernels' launch
     counts set to 0 just before it and read just after: backup B once a
@@ -583,9 +636,7 @@ def search_phase(weights, tables, cfg, boards, stm, sims: int, tag: str, net_app
     from alphagomoku_tpu_torch.search import mcts
     from alphagomoku_tpu_torch.search import score as S
 
-    SSM.score_scan.launches = 0
-    SSM.score_backup.launches = 0
-    CF.fused_trunk.launches = 0
+    _zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state = mcts.run_search(net_apply or CF.fused_apply, weights, tables, cfg, boards, stm,
@@ -593,13 +644,13 @@ def search_phase(weights, tables, cfg, boards, stm, sims: int, tag: str, net_app
     move = mcts.select_move(state)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"score_scan": SSM.score_scan.launches, "score_backup": SSM.score_backup.launches,
-                "fused_trunk": CF.fused_trunk.launches}
+    launches = _counts()
     steps = -(-sims // cfg.leaf_batch)
     trunk = steps + 1 if trunk_launches is None else trunk_launches
     batched = cfg.leaf_batch > 1
     if launches != {"score_scan": steps if batched else 0,
-                    "score_backup": 0 if batched else steps, "fused_trunk": trunk}:
+                    "score_backup": 0 if batched else steps, "fused_trunk": trunk,
+                    "fused_trunk_cluster": trunk if cluster_trunk else 0}:
         raise SystemExit(f"{tag}: the kernels were not launched once per step inside "
                          f"run_search: {launches}")
     tree = state.tree
@@ -839,7 +890,7 @@ def selfplay_run(tag, weights, tables, mcfg, scfg, chunk: int, stop_after_first:
     snap.parent.mkdir(parents=True, exist_ok=True)
     snap.unlink(missing_ok=True)
     checks = MoveChecks(tag, mcfg, scfg)
-    SSM.score_scan.launches = SSM.score_backup.launches = CF.fused_trunk.launches = 0
+    _zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     env0 = SG.balanced_openings(weights, tables, gen, SG.GAMES)
@@ -861,11 +912,10 @@ def selfplay_run(tag, weights, tables, mcfg, scfg, chunk: int, stop_after_first:
     result = run(None)
     torch.cuda.synchronize()
     t_games = time.perf_counter() - t0 - t_open
-    launches = {"score_scan": SSM.score_scan.launches, "score_backup": SSM.score_backup.launches,
-                "fused_trunk": CF.fused_trunk.launches}
+    launches = _counts()
     moves, sims = len(checks.seconds), scfg.num_simulations
     want = {"score_scan": 0, "score_backup": moves * sims,
-            "fused_trunk": moves * (sims + 1) + 1 + calls}
+            "fused_trunk": moves * (sims + 1) + 1 + calls, "fused_trunk_cluster": 0}
     if result is None or snap.exists() or launches != want:
         raise SystemExit(f"{tag}: launches {launches}, expected {want} for {moves} moves "
                          f"searched, or the run did not finish")
@@ -1190,7 +1240,7 @@ def train_phase(paths: dict, generation: dict) -> dict:
     parts["train_buffer"].add_generation(0, dict(generation, valid=tv & ~split))
     parts["valid_buffer"].add_generation(0, dict(generation, valid=tv & split))
     first = 29 - mgr.cfg.buffer_window
-    SSM.score_backup.launches = CF.fused_trunk.launches = 0
+    _zero_counts()
     for i in range(first, 29):
         for sub, buf in parts.items():
             buf.save_generation(0, str(wd / sub / f"buffer_{i}.npz"))
@@ -1303,19 +1353,17 @@ def train_phase(paths: dict, generation: dict) -> dict:
         cell = env.board.flatten(1).gather(1, moves[:, None])[:, 0]
         on_empty.append(((cell == 0) | (env.outcome != int(GameOutcome.UNKNOWN))).all())
 
-    SSM.score_scan.launches = SSM.score_backup.launches = CF.fused_trunk.launches = 0
+    _zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     gate = mgr.gating(29, on_ply=on_ply)
     torch.cuda.synchronize()
     stage["gating"] = time.perf_counter() - t0
-    paths["train"] = {"score_scan": SSM.score_scan.launches,
-                      "score_backup": SSM.score_backup.launches,
-                      "fused_trunk": CF.fused_trunk.launches}
+    paths["train"] = _counts()
     res = mgr.last_gating
     sims = mgr.cfg.num_simulations
     want = {"score_scan": 0, "score_backup": plies[0] * 2 * sims,
-            "fused_trunk": plies[0] * 2 * (sims + 1) + 1}
+            "fused_trunk": plies[0] * 2 * (sims + 1) + 1, "fused_trunk_cluster": 0}
     line = json.loads((wd / "gating.txt").read_text().splitlines()[-1])
     ended = (res.outcomes != int(GameOutcome.UNKNOWN)).sum() + res.truncated
     if (line["iteration"] != 29 or int(res.pentanomial.sum()) != TRAIN_GATING_GAMES // 2
@@ -1451,9 +1499,7 @@ def engine_phase() -> dict:
                          instream=None, outstream=io.StringIO())
     opening = ["START 15", f"INFO max_node {ENGINE_MAX_NODE}"]
     own4 = [(7, 4), (7, 5), (7, 6), (7, 7)]
-    SSM.score_scan.launches = 0
-    SSM.score_backup.launches = 0
-    CF.fused_trunk.launches = 0
+    _zero_counts()
     with _EngineLog() as log:
         out = _drive(mgr, *opening, "BEGIN")
         eng15 = mgr.engine
@@ -1474,9 +1520,7 @@ def engine_phase() -> dict:
                        "PLAY 0,14", "PLAY 5,7", "PLAY 14,0", "PLAY 6,7", "SHOWFORBID",
                        "TURN 14,14", "SHOWFORBID")
         out += win + chain + block + takeback + renju
-        launches = {"score_scan": SSM.score_scan.launches,
-                    "score_backup": SSM.score_backup.launches,
-                    "fused_trunk": CF.fused_trunk.launches}
+        launches = _counts()
     searches = log.searches
     # a 15x15 checkpoint has no 20x20 moves-left head: the engine refuses it
     try:
@@ -1577,15 +1621,6 @@ def engine_phase() -> dict:
     stm20 = torch.full((1,), CROSS, dtype=torch.int8, device="cuda")
     trunk20 = trunk_phase(mgr20.engine.net, root_planes(tables, board20, stm20),
                           "fused_trunk B=1 20x20")
-    wide = init_random_(create_network("ConvNextPVQMraw", blocks=8, filters=128, rows=20,
-                                       cols=20), torch.Generator().manual_seed(WIDE_SEED))
-    wide_tw = CF.pack_trunk_weights(wide.to("cuda"))
-    try:
-        CF.fused_trunk(torch.zeros((1, 20, 20, 128), dtype=torch.bfloat16, device="cuda"),
-                       wide_tw)
-        raise SystemExit("fused_trunk at C = 128 on 20x20 launched")
-    except NotImplementedError as e:
-        print(f"fused_trunk C=128 20x20: raises NotImplementedError ({e})", flush=True)
 
     # -- one realtime search over the YixinBoard protocol ------------------
     yx = ProgramManager(protocol="yixin", checkpoint=str(CKPT), device="cuda", instream=None,
@@ -1871,13 +1906,11 @@ def zoo_phase(generation: dict, flagship_backup_ms: float) -> dict:
         # one engine move through the launcher's ProgramManager
         mgr = ProgramManager(protocol="extended", architecture=ZOO_ENGINE_ARCH, device="cuda",
                              instream=None, outstream=io.StringIO())
-        SSM.score_backup.launches = CF.fused_trunk.launches = SSM.score_scan.launches = 0
+        _zero_counts()
         with _EngineLog() as log:
             answer = _answers(_drive(mgr, "START 15", f"INFO max_node {ENGINE_MAX_NODE}",
                                      "BEGIN"))
-        paths["engine_transformer"] = {"score_scan": SSM.score_scan.launches,
-                                       "score_backup": SSM.score_backup.launches,
-                                       "fused_trunk": CF.fused_trunk.launches}
+        paths["engine_transformer"] = _counts()
         (s,) = log.searches
         steps = s["timings"].get("steps", 0)
         mv = s["summary"].best_move
@@ -1908,13 +1941,12 @@ def zoo_phase(generation: dict, flagship_backup_ms: float) -> dict:
         del nets
 
         # the selfcheck's search in this process: 16 steps at K = 81
-        SSM.score_backup.launches = CF.fused_trunk.launches = SSM.score_scan.launches = 0
+        _zero_counts()
         if selfcheck._check_search("cuda") != "win-in-1 found":
             raise SystemExit("zoo: the selfcheck search failed in process")
-        paths["selfcheck"] = {"score_scan": SSM.score_scan.launches,
-                              "score_backup": SSM.score_backup.launches,
-                              "fused_trunk": CF.fused_trunk.launches}
-        if paths["selfcheck"] != {"score_scan": 0, "score_backup": 16, "fused_trunk": 0}:
+        paths["selfcheck"] = _counts()
+        if paths["selfcheck"] != {"score_scan": 0, "score_backup": 16, "fused_trunk": 0,
+                                  "fused_trunk_cluster": 0}:
             raise SystemExit(f"zoo: the selfcheck search launched {paths['selfcheck']}")
 
         out, _ = child.communicate(timeout=300)
@@ -2305,13 +2337,11 @@ def search_options_phase(weights, tables, boards, stm) -> dict:
     grads = []
     inner = tuner.spsa.gradient_func
     tuner.spsa.gradient_func = lambda tp_, tm_: grads.append(inner(tp_, tm_)) or grads[-1]
-    SSM.score_scan.launches = SSM.score_backup.launches = CF.fused_trunk.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     tuned = tuner.tune(1)
     tune_s = time.perf_counter() - t0
-    paths["tuner"] = {"score_scan": SSM.score_scan.launches,
-                      "score_backup": SSM.score_backup.launches,
-                      "fused_trunk": CF.fused_trunk.launches}
+    paths["tuner"] = _counts()
     theta = np.asarray(tuner.spsa.theta)
     if not (tuner.spsa.step == 1 and -0.5 <= grads[0] <= 0.5 and ((0 <= theta) & (theta <= 1)).all()
             and paths["tuner"]["score_backup"] > 0):
@@ -2345,21 +2375,6 @@ def _free_port() -> int:
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         return sock.getsockname()[1]
-
-
-def _counts() -> dict:
-    from alphagomoku_tpu_torch.ops import convnext_fused as CF
-    from alphagomoku_tpu_torch.ops import score_scan as SSM
-
-    return {"score_scan": SSM.score_scan.launches, "score_backup": SSM.score_backup.launches,
-            "fused_trunk": CF.fused_trunk.launches}
-
-
-def _zero_counts() -> None:
-    from alphagomoku_tpu_torch.ops import convnext_fused as CF
-    from alphagomoku_tpu_torch.ops import score_scan as SSM
-
-    SSM.score_scan.launches = SSM.score_backup.launches = CF.fused_trunk.launches = 0
 
 
 def anchor_match_phase(weights, tables) -> dict:
@@ -2402,7 +2417,8 @@ def anchor_match_phase(weights, tables) -> dict:
     # the candidate's search evaluates its roots and once a step; when games
     # are cut, the match evaluates the final boards with the candidate once
     want = {"score_scan": 0, "score_backup": 2 * n_plies * ANCHOR_MATCH_SIMS,
-            "fused_trunk": n_plies * (ANCHOR_MATCH_SIMS + 1) + (1 if res.truncated else 0)}
+            "fused_trunk": n_plies * (ANCHOR_MATCH_SIMS + 1) + (1 if res.truncated else 0),
+            "fused_trunk_cluster": 0}
     if launches != want:
         raise SystemExit(f"anchor match: launches {launches}, expected {want}")
     board, stm = torch.cat([b for b, _ in plies]), torch.cat([t for _, t in plies])
@@ -2541,6 +2557,132 @@ def last_modules_phase(net, weights, tables, generation) -> dict:
                                           "dp_step": dp["launches"],
                                           "rl_round": dp["rl_launches"]},
             "anchor": anchor, "dp": dp}
+
+
+# phase 24: the trunk kernel at the widths and boards the kernel is built
+# for only through padding or the cluster entry
+TRUNK_SHAPES = {  # tag -> (filters, blocks, batch, rows, cols)
+    "C=16 15x15": (16, 2, 64, 15, 15),  # the dry run's round network, padded to 64
+    "C=96 15x15": (96, 6, 64, 15, 15),  # padded to 128
+    "C=128 16x16": (128, 8, 32, 16, 16),  # the cluster entry
+    "C=128 20x20": (128, 8, 32, 20, 20),
+}
+SHAPES_SEED = 0  # torch.Generator seed of each network's weights
+SEARCH20_BATCH = 64  # boards of the 20x20 8x128 search
+SEARCH20_SIMS = 1  # the counted search: one simulation step, cold
+SEARCH20_TIMED = 5  # steps timed after it, one warm-up step first
+
+
+def random_boards(batch: int, rows: int, cols: int, seed: int = 0):
+    """`bench_boards`' generator on rows x cols boards."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    boards = np.zeros((batch, rows, cols), np.int8)
+    for b in range(batch):
+        n = rng.integers(2, 8)
+        cells = rng.choice(rows * cols, size=n, replace=False)
+        boards[b].flat[cells] = np.where(np.arange(n) % 2 == 0, 1, 2)
+    return boards
+
+
+def trunk_shapes_phase(tables) -> dict:
+    """24. The trunk kernel at each of `TRUNK_SHAPES` (a seeded
+    `init_random_` network built for the board), through `trunk_phase`:
+    held within TRUNK_LIMITS of the plain trunk, block by block within
+    BLOCK_LIMITS, a left-out bias rejected, timed beside the plain and
+    library trunks and the bound, with the entry's occupancy; then one
+    simulation step of the 8x128 network on 20x20 boards, in which every
+    trunk launch is the cluster entry's, and warm steps on from its tree,
+    each timed."""
+    import torch
+    from alphagomoku_tpu_torch.models.networks import create_network, init_random_
+    from alphagomoku_tpu_torch.ops import convnext_fused as CF
+    from alphagomoku_tpu_torch.game.types import CROSS
+    from alphagomoku_tpu_torch.search import mcts
+
+    t0 = time.perf_counter()
+    out, nets = {}, {}
+    for tag, (filters, blocks, batch, rows, cols) in TRUNK_SHAPES.items():
+        net = init_random_(create_network("ConvNextPVQMraw", blocks, filters, rows, cols),
+                           torch.Generator().manual_seed(SHAPES_SEED)).to("cuda").eval()
+        boards = torch.from_numpy(random_boards(batch, rows, cols)).to("cuda")
+        stm = torch.full((batch,), CROSS, dtype=torch.int8, device="cuda")
+        out[tag] = trunk_phase(net, root_planes(tables, boards, stm), f"fused_trunk {tag}")
+        out[tag]["plan"] = CF.trunk_plan(filters, rows, cols)._asdict()
+        nets[tag] = net
+    weights = CF.pack_weights(nets["C=128 20x20"])
+    boards = torch.from_numpy(random_boards(SEARCH20_BATCH, 20, 20, seed=1)).to("cuda")
+    stm = torch.full((SEARCH20_BATCH,), CROSS, dtype=torch.int8, device="cuda")
+    cfg = mcts.MCTSConfig(max_nodes=16, max_edges=32, max_depth=16)
+    state, launches = search_phase(weights, tables, cfg, boards, stm, SEARCH20_SIMS,
+                                   "search 8x128 20x20", cluster_trunk=True)
+    # the step's time: warm steps on from that search's tree (1 + 1 +
+    # SEARCH20_TIMED simulations stay within max_nodes)
+    simulate = mcts.make_simulate_fn(CF.fused_apply, tables, cfg)
+    step_ms = []
+    with torch.no_grad():
+        for i in range(1 + SEARCH20_TIMED):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state = simulate(weights, state)
+            torch.cuda.synchronize()
+            if i:
+                step_ms.append((time.perf_counter() - t1) * 1e3)
+    print(f"search 8x128 20x20: {SEARCH20_TIMED} warm simulation steps at batch "
+          f"{SEARCH20_BATCH} after one warm-up step: median {statistics.median(step_ms):.3f} ms, "
+          f"min {min(step_ms):.3f} ms, max {max(step_ms):.3f} ms (the line above times one cold "
+          f"step with the roots' evaluation)", flush=True)
+    seconds = time.perf_counter() - t0
+    print(f"phase 24: {seconds:.1f} s by its own clock", flush=True)
+    return {"shapes": out, "launches": launches, "step_ms": step_ms, "seconds": seconds}
+
+
+DRYRUN_N = 2  # processes of tools/dryrun_multichip.py on the one card (tp = 2)
+DRYRUN_REPS = 3  # steps timed of the tp step and of the plain step
+
+
+def tensor_parallel_phase() -> dict:
+    """25. `tools/dryrun_multichip.py` at n = 2 (tp = 2) as child processes
+    on the one card over gloo with CUDA tensors: the float32 flagship's
+    column-parallel step held against the plain step on the card within
+    the CPU test's constants and both timed, the flagship's bf16 step on
+    the reference's batch, and one `make_rl_round` of a 2x16 network (the
+    trunk kernel at 16 channels, padded) with its launches on rank 0."""
+    import torch
+
+    torch.cuda.empty_cache()  # the children need the card's memory
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "alphagomoku_tpu_torch.tools.dryrun_multichip", "--n",
+         str(DRYRUN_N), "--device", "cuda", "--check", "--reps", str(DRYRUN_REPS),
+         "--timeout", "500"], cwd=ROOT, capture_output=True, text=True, timeout=560)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SystemExit(f"tensor parallelism: dryrun_multichip exited {proc.returncode}:\n"
+                         f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    lines = proc.stdout.strip().splitlines()
+    res = json.loads(lines[-1])
+    check = res["check"]
+    if not (check["ok"] and res["mesh"] == {"dp": 1, "tp": 2} and res["backend"] == "gloo"):
+        raise SystemExit(f"tensor parallelism: {res}")
+    if not (res["rl_launches"]["fused_trunk"] > 0 and res["rl_launches"]["score_backup"] > 0):
+        raise SystemExit(f"tensor parallelism: the round's searches missed the kernels: {res}")
+    for line in lines[:-1]:
+        print(f"tensor parallelism: {line}", flush=True)
+    print(f"tensor parallelism (phase 25): dryrun_multichip n={DRYRUN_N} on one card over gloo, "
+          f"mesh {res['mesh']}: the float32 flagship's tp step against the plain step at batch "
+          f"256: parameters {check['param_max_abs_err']:.3g} apart (limit "
+          f"{check['limits']['param_atol']:g}), gradients {check['grad_max_abs_err']:.3g} of "
+          f"{check['grad_scale']:.3g} (limit {check['limits']['grad_rel']:g} of it), total loss "
+          f"{check['losses']['total']:.6f} against {check['plain_losses']['total']:.6f}; tp step "
+          f"{check['tp_step_ms']:.3f} ms, plain step {check['plain_step_ms']:.3f} ms (means of "
+          f"{DRYRUN_REPS}); bf16 train step {res['train_step_s']:.3f} s, losses "
+          f"{res['train_losses']}; rl round {res['rl_round_s']:.3f} s, losses "
+          f"{res['rl_losses']}, valid samples on rank 0 {res['rl_valid_samples']}, launches on "
+          f"rank 0 {res['rl_launches']}; {seconds:.1f} s in all", flush=True)
+    res["seconds"] = seconds
+    return res
 
 
 def main() -> int:
@@ -2725,6 +2867,11 @@ def main() -> int:
         "profile:", "profile 8x128:"), flush=True)
     del state, simulate
 
+    # 24. the trunk at padded widths and through the cluster entry, and one
+    # step of the 8x128 network on 20x20 boards
+    shapes = trunk_shapes_phase(tables)
+    paths["search_20x20"] = shapes["launches"]
+
     # 12. the strength search: network_23 and the VCT leaf solver (bench.py's
     # strength configuration)
     scfg = cfg._replace(leaf_solver="vct", leaf_solver_steps=16, leaf_solver_cap=256)
@@ -2794,15 +2941,30 @@ def main() -> int:
     last = last_modules_phase(net, weights, tables, generation)
     paths.update(last["paths"])
 
+    # 25. tensor parallelism: tools/dryrun_multichip.py at n = 2 on this card
+    tensor = tensor_parallel_phase()
+    paths["dryrun_train_step"] = tensor["train_launches"]
+    paths["dryrun_rl_round"] = tensor["rl_launches"]
+
     trunk = dict(name="fused_trunk", route="cuda",
                  source="alphagomoku_tpu_torch/csrc/convnext_trunk.cu",
                  replaces="alphagomoku_tpu/ops/convnext_fused.py:92", **trunk64)
     trunk["widths"] = {"64": dict(trunk64, launches=paths["flagship"]["fused_trunk"]),
-                       "128": dict(trunk128, launches=paths["8x128"]["fused_trunk"])}
+                       "128": dict(trunk128, launches=paths["8x128"]["fused_trunk"]),
+                       "16 (padded to 64)": dict(
+                           shapes["shapes"]["C=16 15x15"],
+                           launches=paths["dryrun_rl_round"]["fused_trunk"]),
+                       "96 (padded to 128)": shapes["shapes"]["C=96 15x15"]}
     trunk.update(trained)
     trunk["engine_b1"] = engine["fused_trunk"]
     trunk["leaf_batch"] = rest["trunk"]
     kernels.append(trunk)
+    cluster = shapes["shapes"]["C=128 20x20"]
+    kernels.append(dict(
+        name="fused_trunk_cluster", route="cuda",
+        source="alphagomoku_tpu_torch/csrc/convnext_trunk.cu",
+        replaces="alphagomoku_tpu/ops/convnext_fused.py:92", shape="C=128 L=8 20x20",
+        **cluster, boards={"16x16": shapes["shapes"]["C=128 16x16"], "20x20": cluster}))
     top = "K=81 D=16"  # the wide entries' headline shape: the selfcheck's K
     for name in ("score_scan", "score_backup"):
         kernels.append(dict(
@@ -2822,7 +2984,7 @@ def main() -> int:
     wide_paths = ("selfcheck", "leaf_batch_k81")
     main_path = {"score_scan": "leaf_batch", "score_backup": "flagship",
                  "fused_trunk": "flagship", "score_scan_wide": "leaf_batch_k81",
-                 "score_backup_wide": "selfcheck"}
+                 "score_backup_wide": "selfcheck", "fused_trunk_cluster": "search_20x20"}
     for k in kernels:
         wrapper = k["name"].removesuffix("_wide")
         wide_kernel = wrapper != k["name"]

@@ -1,5 +1,5 @@
-"""The port's data parallelism over `torch.distributed` (`parallel/`) on
-the CPU with gloo:
+"""The port's data and tensor parallelism over `torch.distributed`
+(`parallel/`) on the CPU with gloo:
 
 - a 2-process run (tests/torch_dist_worker.py, a FileStore under
   tmp_path): two DP train steps, FastPolicy 1x8 and ConvNextPVQMraw 1x8
@@ -13,8 +13,19 @@ the CPU with gloo:
   `make_rl_round`; two iterations of a distributed `TrainingManager`, in
   which rank 1 writes only its own `_h1` files and the coordinator writes
   every checkpoint, metadata and metric file; `param_shardings` at tp = 2
-  makes the JAX package's choice on the flagship's parameters, and a step
-  at tp > 1 raises naming its ROADMAP entry;
+  makes the JAX package's choice on the flagship's parameters;
+- in the same run, on a (1, 2) mesh: the column-parallel step (the state
+  placed by `param_shardings(tensor_parallel=True)`) of both networks and
+  of Transformer_v2 1x8 (a positional embedding and attention biases
+  placed over tp) equals the single-process step within the same constants (the tp
+  all-reduce sums the input gradients in another order), the replicated
+  leaves are bitwise equal on both ranks and the sharded ones are the
+  halves of the gathered state; the gathered state writes the
+  single-process checkpoint bytes; a step with the replicated state is
+  bitwise the plain step; a `make_rl_round` at tp = 2 leaves both ranks
+  with one state;
+- a 4-process run on a (2, 2) mesh: one column-parallel step of
+  FastPolicy 1x8 on each dp half equals the single-process step;
 - in this process, a world-size-1 group: the DP step is bitwise the plain
   step (the check `chip_smoke.py` makes over NCCL on the card).
 """
@@ -42,6 +53,7 @@ torch.set_num_threads(1)
 WORKER = Path(__file__).resolve().parent / "torch_dist_worker.py"
 H = W = 9
 ARCHS = ("FastPolicy", "ConvNextPVQMraw")
+TP_ARCHS = ARCHS + ("Transformer_v2",)  # tests/torch_dist_worker.py's
 STEPS = 2
 PARAM_ATOL = 1e-6
 REL = 1e-5
@@ -58,7 +70,7 @@ def _global_batch() -> dict:
     return batch
 
 
-def _single_process(arch: str, batch: dict):
+def _single_process(arch: str, batch: dict, steps: int = STEPS):
     """The steps of one process on the whole batch, with the same modes."""
     net = create_network(arch, 1, 8, H, W, dtype=torch.float32)
     init_random_(net, torch.Generator().manual_seed(5))
@@ -66,15 +78,13 @@ def _single_process(arch: str, batch: dict):
     step = T.make_train_step(net, tx, V.device_tables(GameRules.FREESTYLE), T.TrainConfig())
     losses = {}
     tensors = {k: torch.from_numpy(v) for k, v in batch.items() if k != "modes"}
-    for i in range(STEPS):
+    for i in range(steps):
         _, parts = step(state, tensors, torch.from_numpy(batch["modes"][i]))
         losses.update({f"loss{i}/{k}": v.numpy() for k, v in parts.items()})
     return net, losses
 
 
-@pytest.fixture(scope="module")
-def two_ranks(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("dist")
+def _run_workers(tmp, world: int):
     out, work = tmp / "out", tmp / "work"
     out.mkdir()
     work.mkdir()
@@ -82,13 +92,24 @@ def two_ranks(tmp_path_factory):
     np.savez(tmp / "batch.npz", **batch)
     env = dict(os.environ, OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
-        [sys.executable, str(WORKER), str(r), "2", f"file://{tmp}/store", str(tmp / "batch.npz"),
-         str(out), str(work)], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(2)]
+        [sys.executable, str(WORKER), str(r), str(world), f"file://{tmp}/store",
+         str(tmp / "batch.npz"), str(out), str(work)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
     logs = [p.communicate(timeout=240)[0] for p in procs]
     for p, log in zip(procs, logs):
         assert p.returncode == 0, log[-4000:]
     return out, work, batch
+
+
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    return _run_workers(tmp_path_factory.mktemp("dist"), 2)
+
+
+@pytest.fixture(scope="module")
+def four_ranks(tmp_path_factory):
+    return _run_workers(tmp_path_factory.mktemp("dist4"), 4)
 
 
 def _load(out: Path, name: str, rank: int) -> dict:
@@ -109,11 +130,10 @@ def test_dp_step_replicas_bitwise_identical(two_ranks, arch):
     _same_bits(_load(out, f"dp_{arch}", 0), _load(out, f"dp_{arch}", 1))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_dp_step_equals_single_process_step(two_ranks, arch):
-    out, _, batch = two_ranks
-    ours = _load(out, f"dp_{arch}", 0)
-    net, losses = _single_process(arch, batch)
+def _assert_single_process_step(ours: dict, arch: str, batch: dict, steps: int = STEPS):
+    """`ours` (the whole state, gradients and losses of a parallel run)
+    against one process's steps, within PARAM_ATOL, GRAD_REL and REL."""
+    net, losses = _single_process(arch, batch, steps)
     for k, v in net.state_dict().items():
         want = v.detach().numpy()
         got = ours[f"p/{k}"]
@@ -126,6 +146,73 @@ def test_dp_step_equals_single_process_step(two_ranks, arch):
         assert np.abs(ours[f"g/{k}"] - p.grad.numpy()).max() <= GRAD_REL * scale, k
     for k, want in losses.items():
         assert abs(float(ours[k]) - float(want)) <= REL * max(1.0, abs(float(want))), k
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_dp_step_equals_single_process_step(two_ranks, arch):
+    out, _, batch = two_ranks
+    _assert_single_process_step(_load(out, f"dp_{arch}", 0), arch, batch)
+
+
+@pytest.mark.parametrize("arch", TP_ARCHS)
+def test_tp_step_equals_single_process_step(two_ranks, arch):
+    """The column-parallel step at (1, 2), gathered, against one process's
+    steps on the same batch and modes."""
+    out, _, batch = two_ranks
+    ours = {k: v for k, v in _load(out, f"tp_{arch}", 0).items() if not k.startswith("local/")}
+    _assert_single_process_step(ours, arch, batch)
+
+
+@pytest.mark.parametrize("arch", TP_ARCHS)
+def test_tp_replicated_leaves_bitwise_identical(two_ranks, arch):
+    """Each rank's replicated leaves bitwise equal, its sharded leaves its
+    half of the gathered state (equal on both ranks)."""
+    out, _, _ = two_ranks
+    runs = [_load(out, f"tp_{arch}", r) for r in range(2)]
+    gathered = [{k: v for k, v in run.items() if not k.startswith("local/")} for run in runs]
+    _same_bits(*gathered)
+    halves = 0
+    for key in (k[len("local/"):] for k in runs[0] if k.startswith("local/")):
+        a, b = runs[0][f"local/{key}"], runs[1][f"local/{key}"]
+        whole = runs[0][f"p/{key}"]
+        if a.shape == whole.shape:
+            _same_bits({key: a}, {key: b})
+        else:
+            halves += 1
+            dim = next(d for d in range(a.ndim) if a.shape[d] != whole.shape[d])
+            assert np.array_equal(np.concatenate([a, b], axis=dim), whole), key
+    assert halves > 0
+
+
+def test_tp_state_gathers_to_the_single_process_checkpoint(two_ranks):
+    out, _, _ = two_ranks
+    for r in range(2):
+        checks = json.loads((out / f"tp_checks_r{r}.json").read_text())
+        assert checks["same_file"] and checks["sharded_keys"], checks
+
+
+def test_tp_replicated_state_step_is_bitwise_the_plain_step(two_ranks):
+    out, _, _ = two_ranks
+    for r in range(2):
+        assert json.loads((out / f"tp_checks_r{r}.json").read_text())["replicated_step_is_plain"]
+
+
+def test_rl_round_tp_leaves_one_state(two_ranks):
+    out, _, _ = two_ranks
+    a, b = _load(out, "rl_round_tp", 0), _load(out, "rl_round_tp", 1)
+    _same_bits(a, b)
+    assert np.isfinite(a["total"])
+
+
+def test_tp_dp_2x2_step_equals_single_process_step(four_ranks):
+    """dp and tp together on a (2, 2) mesh: every rank gathers one state,
+    one process's step on the whole batch within the constants."""
+    out, _, batch = four_ranks
+    runs = [{k: v for k, v in _load(out, "tp22_FastPolicy", r).items()
+             if not k.startswith("local/")} for r in range(4)]
+    for run in runs[1:]:
+        _same_bits(runs[0], run)
+    _assert_single_process_step(runs[0], "FastPolicy", batch, steps=1)
 
 
 def test_rl_round_replicated(two_ranks):
@@ -174,7 +261,6 @@ def test_param_shardings_make_the_jax_choice(two_ranks):
     out, _, _ = two_ranks
     got = json.loads((out / "shardings.json").read_text())
     assert got["dp"] == ["Replicate()"] and got["off"] == ["(Replicate(), Replicate())"]
-    assert "ROADMAP.md" in got["tp_raise"] and "item 16" in got["tp_raise"]
     net = jax_network("ConvNextPVQMraw")
     shapes = jax.eval_shape(lambda: net.init(jax.random.PRNGKey(0), jnp.zeros((1, 15, 15, 8)),
                                              train=False))

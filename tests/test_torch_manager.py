@@ -150,29 +150,33 @@ def test_resume_reference_run(tmp_path, monkeypatch):
 def test_distributed_raises_naming_roadmap(tmp_path):
     """`ManagerConfig(distributed=True)` runs: over a world-size-1 gloo
     group one iteration writes the coordinator's checkpoint and metadata
-    and its `_h0` replay shard; only a train step at tp > 1 raises, naming
-    its ROADMAP entry (the 2-process run is tests/test_torch_distributed.py)."""
-    import types
-
+    and its `_h0` replay shard; the mesh holds the manager's device, and
+    the checkpoint is written through `full_state_dict` (which gathers a
+    state placed over tp; this one is whole), byte for byte the
+    single-process writer's file (the 2-process run, tensor parallelism
+    included, is tests/test_torch_distributed.py)."""
     import torch.distributed as dist
 
+    from alphagomoku_tpu_torch.models.convert import to_flax
     from alphagomoku_tpu_torch.parallel import distributed as D
+    from alphagomoku_tpu_torch.parallel import full_state_dict
+    from alphagomoku_tpu_torch.utils import checkpoint
 
     D.initialize(f"file://{tmp_path}/store", 1, 0, backend="gloo")
     try:
         wd = tmp_path / "run"
         mgr = TMGR.TrainingManager(_cfg(wd, distributed=True), device="cpu")
         assert (mgr.n_hosts, mgr.host, mgr.is_coordinator) == (1, 0, True)
+        assert mgr.mesh.device_type == "cpu"
         metrics = mgr.run_iteration_rl(0)
         assert metrics["samples"] > 0 and np.isfinite(metrics["total"])
         assert (wd / "train_buffer" / "buffer_0_h0.npz").exists()
-        assert (wd / "checkpoint" / "network_0.msgpack").exists()
+        written = (wd / "checkpoint" / "network_0.msgpack").read_bytes()
+        assert written == checkpoint.to_bytes(to_flax(mgr.net.state_dict()))
+        assert written == checkpoint.to_bytes(to_flax(full_state_dict(mgr.net)))
         assert json.loads((wd / "metadata.json").read_text())["learning_steps"] == 2
     finally:
         dist.destroy_process_group()
-    tp2 = types.SimpleNamespace(shape=(1, 2), mesh_dim_names=("dp", "tp"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 16"):
-        D.make_dp_train_step(T.make_train_step, tp2)
 
 
 def test_hand_over_packs_a_fresh_snapshot(run):
