@@ -5,7 +5,10 @@
 // zero channels (ops/convnext_fused.py `pad_trunk`).  A second entry,
 // `convnext_trunk_cluster_kernel<128>`, takes C = 128 on boards whose
 // activations do not fit one CTA (above 252 cells: 16x16 to 20x20), as a
-// cluster of two CTAs a board (see the end of this comment).
+// cluster of two CTAs a board (see the end of this comment).  A third,
+// `convnext_trunk_wide_kernel<256>`, takes C = 256 (and 129 to 255 on zero
+// channels) on every board up to 20x20, with w1 and w2 streamed from L2
+// (see its own comment above it).  Wider trunks have no entry.
 //
 // Replaces the Pallas TPU kernel `_trunk_kernel` of
 // alphagomoku_tpu/ops/convnext_fused.py (wrapper `fused_trunk`).  Per
@@ -129,8 +132,10 @@ struct Trunk {
   static constexpr int NC = 32;        // output columns per pass of a product
   static constexpr int SE_LOADS = C * C / 8 / kThreads;  // 16-byte loads per thread per dense
   static constexpr int kMinBlocks = C == 64 ? 2 : 1;     // CTAs per SM
+  // C = 64 and 128 for the one-CTA and cluster entries; the wide entry
+  // takes only the depthwise and channel scale's constants from here
   static_assert(C % NC == 0 && NC % 16 == 0 && SE_LOADS >= 1 && (C * C / 8) % kThreads == 0,
-                "C must be 64 or 128");
+                "C must be a multiple of 32 with C * C / 8 a multiple of kThreads");
 
   // dynamic shared memory of one CTA
   static size_t bytes(int H, int W) {
@@ -425,7 +430,11 @@ __device__ __forceinline__ void dense_partial(const float* in,
 // writes each of them out in its body (see there why): every helper here
 // has a twin there, named in a "twin:" comment at both, and an edit to one
 // (a rounding point, settle()'s use) is made to both.  Only the card tests
-// against the plain trunk would catch the two drifting apart.
+// against the plain trunk would catch the two drifting apart.  The wide
+// entry's helpers (stage_taps, stream_product, doubtful, settle_cta,
+// seq_dot_global, dense_global, se_global) are twins of these and of
+// settle(), seq_dot() and stage_layer() with the weights in global memory:
+// the same holds for them.
 
 // Column 2-norms of w1 and w2 times kErr, for settle().
 // twin: the kExact norms at the top of convnext_trunk_kernel's layer loop.
@@ -1133,6 +1142,524 @@ convnext_trunk_cluster_kernel(const bf16* __restrict__ x, Weights wt, bf16* __re
   }
 }
 
+// The wide entry, C = 256: the same function, the same rounding points and
+// the same settle() as the entries above, for trunks whose activations and
+// weights fit no CTA.  At C = 256 a cell is 528 bytes in rows of C + 8, so
+// a 15x15 board's two activation buffers alone take 237,600 B, and w1 and
+// w2 a further 270,336 B a layer, against the card's 232,448 B a CTA.  So:
+// - a cluster of n CTAs a board (n from 1 to 8, the least that fits, picked
+//   by the wrapper: ops/convnext_fused.py `trunk_plan`), CTA r holding rows
+//   [r H / n, (r + 1) H / n) and, above and below them, the kR halo rows its
+//   depthwise reads, copied each block through distributed shared memory
+//   from the CTAs that hold them (a halo row may come from a CTA two ranks
+//   away where a CTA holds fewer than kR rows), between two cluster
+//   barriers as in the cluster entry;
+// - w1 and w2 never resident: each product streams its matrix from L2 in
+//   stages of KS k-rows through a double buffer of cp.async copies, every
+//   warp owning NW output columns of every m16 tile of the CTA's rows (at
+//   most MT tiles, 16 MT cells, so that the accumulators stay in
+//   registers); the column norms settle() needs are summed from the same
+//   stages, k ascending;
+// - the relu output of product 1 goes back into the depthwise buffer once
+//   every warp has read it (product 2's A fragments come from there by
+//   ldmatrix, not from registers: a warp holds only its columns);
+// - settle() re-sums doubtful outputs k ascending with the matrix column
+//   read from global memory (L2), a CTA's all at once (settle_cta): a
+//   re-sum waits on 256 loads from L2, so warps re-summing their own tile
+//   by tile would wait on one such chain after another;
+// - the SE denses read sw1 and sw2 from global memory as they go (256 KB a
+//   layer: no register or shared copy), each CTA computing the gate from
+//   the n CTAs' column sums added in rank order, so that every CTA gates
+//   alike and a run repeats bit for bit.
+// Bound: operations, as the narrower entries (the depthwise in f32 on CUDA
+// cores); each CTA also reads 512 KB of weights a layer from L2.
+template <int C>
+struct Wide {
+  static constexpr int RS = C + 8;     // row stride (bf16) of the [rows][C] buffers
+  static constexpr int C8 = C / 8;
+  static constexpr int KS = 32;        // k rows of a streamed stage
+  static constexpr int MT = 8;         // m16 tiles of a CTA's rows at most
+  static constexpr int NW = C / kWarps;  // output columns a warp owns
+  static constexpr int NJ = NW / 8;    // its n8 tiles
+  static constexpr int kMaxCtas = 8;   // the portable cluster size
+  static_assert(C <= kThreads && NW % 16 == 0 && C % KS == 0 && KS % 16 == 0 &&
+                    kThreads % C8 == 0 && C8 <= 32,
+                "the wide entry's layout");
+
+  // first row of CTA r of n on an H-row board
+  __host__ __device__ static int row0(int r, int H, int n) { return r * H / n; }
+  // rows a CTA holds at most
+  __host__ __device__ static int own_rows(int H, int n) { return (H + n - 1) / n; }
+  // rows of the largest window (a CTA's rows and its halo)
+  __host__ __device__ static int window_rows(int H, int n) {
+    int most = 0;
+    for (int r = 0; r < n; ++r) {
+      const int lo = row0(r, H, n) - kR, hi = row0(r + 1, H, n) + kR;
+      const int rows = (hi < H ? hi : H) - (lo > 0 ? lo : 0);
+      most = rows > most ? rows : most;
+    }
+    return most;
+  }
+  // dynamic shared memory of one CTA: the window and the depthwise output
+  // of its rows, two weight stages, the taps, and the f32 BN and bias
+  // vectors, the SE dense's per-warp sums, z, h1, the gate, the column
+  // norms and the CTA's SE column sums
+  static size_t bytes(int H, int W, int n) {
+    return ((size_t(window_rows(H, n)) + own_rows(H, n)) * W * RS + 2 * KS * RS + kTaps * C) *
+               sizeof(bf16) +
+           (4 * C + kWarps * C + 3 * C + C + C) * sizeof(float);
+  }
+  static bool takes(int H, int W, int n) {
+    return n >= 1 && n <= kMaxCtas && n <= H && own_rows(H, n) * W <= 16 * MT;
+  }
+};
+
+// Layer l's taps and BN/bias vectors into shared memory (cp.async; the
+// caller commits the group): stage_layer() without w1 and w2.
+template <int C>
+__device__ __forceinline__ void stage_taps(const Weights& wt, int l, bf16* dw, float* vec,
+                                           int tid) {
+  constexpr int C8 = C / 8;
+  const bf16* gdw = wt.dw + size_t(l) * kTaps * C;
+  for (int i = tid; i < kTaps * C8; i += kThreads) cp_async16(dw + i * 8, gdw + i * 8);
+  for (int i = tid; i < C / 4; i += kThreads) {
+    const size_t o = size_t(l) * C + i * 4;
+    cp_async16(vec + i * 4, wt.bn_s + o);
+    cp_async16(vec + C + i * 4, wt.bn_t + o);
+    cp_async16(vec + 2 * C + i * 4, wt.b1 + o);
+    cp_async16(vec + 3 * C + i * 4, wt.b2 + o);
+  }
+}
+
+// acc = a @ w over the M cells of `a` ([M][RS] bf16 in shared memory) and
+// this warp's NW columns, w ([C][C] bf16, in global memory) streamed in
+// stages of KS rows; rn the 2-norms of this lane's A rows (g, g + 8) of
+// each tile, wnorm[col] (shared) kErr times the 2-norm of column col.
+template <int C>
+__device__ __forceinline__ void stream_product(const bf16* a, int M, const bf16* wg,
+                                               bf16* stage, float* wnorm,
+                                               float (&acc)[Wide<C>::MT][Wide<C>::NJ][4],
+                                               float (&rn)[Wide<C>::MT][2], int tid, int warp,
+                                               int lane) {
+  using G = Wide<C>;
+  constexpr int RS = G::RS, C8 = G::C8, KS = G::KS, MT = G::MT, NJ = G::NJ, S = C / KS;
+  constexpr int kB = sizeof(bf16);
+  const int mt = (M + 15) / 16;
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    rn[m][0] = rn[m][1] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[m][j][0] = acc[m][j][1] = acc[m][j][2] = acc[m][j][3] = 0.f;
+  }
+  for (int i = tid; i < KS * C8; i += kThreads)
+    cp_async16(stage + (i / C8) * RS + (i % C8) * 8, wg + i * 8);
+  cp_async_commit();
+  float nsq = 0.f;  // column tid's sum of squares, k ascending
+  // this lane's ldmatrix addresses: A row (lane & 15) of a tile, 8-column
+  // half (lane >> 4); B row k = (lane & 15) of a stage, this warp's columns
+  const uint32_t abase = smem_u32(a + (lane >> 4) * 8);
+#pragma unroll 1
+  for (int s = 0; s < S; ++s) {
+    cp_async_wait_all();
+    // stage s has landed, and every warp is done with stage s - 1's buffer
+    __syncthreads();
+    if (s + 1 < S) {
+      bf16* next = stage + ((s + 1) & 1) * KS * RS;
+      const bf16* src = wg + size_t(s + 1) * KS * C;
+      for (int i = tid; i < KS * C8; i += kThreads)
+        cp_async16(next + (i / C8) * RS + (i % C8) * 8, src + i * 8);
+    }
+    cp_async_commit();
+    const bf16* st = stage + (s & 1) * KS * RS;
+    if (tid < C) {
+#pragma unroll 8
+      for (int k = 0; k < KS; ++k) {
+        const float v = __bfloat162float(st[k * RS + tid]);
+        nsq = fmaf(v, v, nsq);
+      }
+    }
+    const uint32_t bbase = smem_u32(st + (lane & 15) * RS + warp * G::NW + (lane >> 4) * 8);
+#pragma unroll
+    for (int kk = 0; kk < KS / 16; ++kk) {
+      uint32_t b[NJ / 2][4];
+#pragma unroll
+      for (int nn = 0; nn < NJ / 2; ++nn) ldmatrix_x4_trans(b[nn], bbase + (kk * 16 * RS + nn * 16) * kB);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        if (m < mt) {
+          uint32_t af[4];
+          const int row = min(m * 16 + (lane & 15), M - 1);
+          ldmatrix_x4(af, abase + (row * RS + s * KS + kk * 16) * kB);
+          // registers 0 and 2 hold row g, 1 and 3 row g + 8
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float2 f = unpack2(af[r]);
+            rn[m][r & 1] = fmaf(f.x, f.x, fmaf(f.y, f.y, rn[m][r & 1]));
+          }
+#pragma unroll
+          for (int nn = 0; nn < NJ / 2; ++nn) {
+            mma_bf16(acc[m][2 * nn], af, b[nn][0], b[nn][1]);
+            mma_bf16(acc[m][2 * nn + 1], af, b[nn][2], b[nn][3]);
+          }
+        }
+      }
+    }
+  }
+  if (tid < C) wnorm[tid] = kErr * sqrtf(nsq);
+  __syncthreads();
+  quad_norms<MT>(rn);
+}
+
+// seq_dot with the matrix column in global memory (row stride C).
+template <int C>
+__device__ __forceinline__ float seq_dot_global(const bf16* a, const bf16* w) {
+  const unsigned short* wu = reinterpret_cast<const unsigned short*>(w);
+  float s = 0.f;
+#pragma unroll 4
+  for (int k0 = 0; k0 < C; k0 += 8) {
+    float f[8];
+    unpack8(*reinterpret_cast<const uint4*>(a + k0), f);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      s = fmaf(f[i], __bfloat162float(__ushort_as_bfloat16(__ldg(wu + (k0 + i) * C))), s);
+  }
+  return s;
+}
+
+// This lane's doubtful outputs of one m16 tile (its NJ n8 tiles, columns
+// col0..), one bit each, as settle() flags them.
+template <int NJ>
+__device__ __forceinline__ uint32_t doubtful(const float (&acc)[NJ][4], const float (&rn)[2],
+                                             const float* wn, const float* bias, int m, int col0,
+                                             int M, int g, int t, bool relu) {
+  static_assert(NJ * 4 <= 32, "one flag bit per output");
+  uint32_t flags = 0;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int row = m * 16 + g + 8 * (q >> 1);
+      const int col = col0 + j * 8 + 2 * t + (q & 1);
+      const float e = rn[q >> 1] * wn[col];
+      float lo = __fsub_rd(acc[j][q], e) + bias[col];
+      float hi = __fadd_ru(acc[j][q], e) + bias[col];
+      if (relu) {
+        lo = fmaxf(lo, 0.f);
+        hi = fmaxf(hi, 0.f);
+      }
+      if (row < M && __bfloat16_as_ushort(__float2bfloat16_rn(lo)) !=
+                         __bfloat16_as_ushort(__float2bfloat16_rn(hi)))
+        flags |= 1u << (j * 4 + q);
+    }
+  return flags;
+}
+
+// settle() for the wide entry, the whole CTA at once: each lane flags its
+// doubtful outputs, reserves that many entries of `list` (shared memory,
+// `cap` entries after the count `*cnt`, which the caller zeroed behind a
+// barrier) and writes their cells there; after a barrier every thread sums
+// one listed output again in the plain order (seq_dot_global: A rows from
+// `a` in shared memory, the matrix wg in global memory), and after another
+// each lane takes its sums back.  A warp's flagged outputs so cost one
+// latency chain for the CTA, not one per flagged lane and tile in turn.
+// Outputs past `cap` are summed by their lane.
+template <int C>
+__device__ __forceinline__ void settle_cta(float (&acc)[Wide<C>::MT][Wide<C>::NJ][4],
+                                           const float (&rn)[Wide<C>::MT][2], const float* wn,
+                                           const float* bias, const bf16* a, const bf16* wg,
+                                           int M, int col0, int g, int t, bool relu,
+                                           unsigned* cnt, int2* list, int cap, int tid) {
+  using G = Wide<C>;
+  constexpr int MT = G::MT, NJ = G::NJ, RS = G::RS;
+  const int mt = (M + 15) / 16;
+  uint32_t flags[MT];
+  int mine = 0;
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    flags[m] = m < mt ? doubtful<NJ>(acc[m], rn[m], wn, bias, m, col0, M, g, t, relu) : 0u;
+    mine += __popc(flags[m]);
+  }
+  const int base = mine ? static_cast<int>(atomicAdd(cnt, static_cast<unsigned>(mine))) : 0;
+  int k = base;
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+    for (uint32_t f = flags[m]; f; f &= f - 1u, ++k) {
+      const int i = __ffs(f) - 1;
+      const int row = m * 16 + g + 8 * ((i & 3) >> 1);
+      const int col = col0 + (i >> 2) * 8 + 2 * t + (i & 1);
+      if (k < cap) list[k] = make_int2(row | (col << 16), 0);
+    }
+  __syncthreads();
+  const int listed = min(static_cast<int>(*cnt), cap);
+  for (int e = tid; e < listed; e += kThreads) {
+    const int cell = list[e].x;
+    list[e].y = __float_as_int(seq_dot_global<C>(a + (cell & 0xffff) * RS, wg + (cell >> 16)));
+  }
+  __syncthreads();
+  k = base;
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+    for (uint32_t f = flags[m]; f; f &= f - 1u, ++k) {
+      const int i = __ffs(f) - 1;
+      const float s = k < cap ? __int_as_float(list[k].y)
+                              : seq_dot_global<C>(a + (m * 16 + g + 8 * ((i & 3) >> 1)) * RS,
+                                                  wg + col0 + (i >> 2) * 8 + 2 * t + (i & 1));
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj)
+#pragma unroll
+        for (int qq = 0; qq < 4; ++qq)
+          if (jj * 4 + qq == i) acc[m][jj][qq] = s;
+    }
+}
+
+// dense_partial with the weights ([C][C] bf16) read from global memory as
+// it goes: red[warp][C] the per-warp partial sums of in @ w.
+template <int C>
+__device__ __forceinline__ void dense_global(const float* in, const bf16* wg, float* red,
+                                             int tid) {
+  constexpr int C8 = C / 8, ROWS = kThreads / C8;
+  const int cg = tid % C8, r0 = tid / C8, lane = tid & 31;
+  const uint4* w4 = reinterpret_cast<const uint4*>(wg) + cg;
+  float acc[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+#pragma unroll 8
+  for (int k = r0; k < C; k += ROWS) {
+    const float v = in[k];
+    float f[8];
+    unpack8(__ldg(w4 + size_t(k) * C8), f);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i] = fmaf(v, f[i], acc[i]);
+  }
+#pragma unroll
+  for (int off = C8; off < 32; off <<= 1)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], off);
+  if (lane < C8) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) red[(tid >> 5) * C + cg * 8 + i] = acc[i];
+  }
+}
+
+// The SE gate of the wide entry after the mean z (threads tid < C wrote
+// it): as se_denses, the weights read from global memory.
+template <int C>
+__device__ __forceinline__ void se_global(const Weights& wt, int l, const float* z, float* red,
+                                          float* h1, float* gate, int tid) {
+  const float sb1 = tid < C ? __ldg(wt.sb1 + size_t(l) * C + tid) : 0.f;
+  const float sb2 = tid < C ? __ldg(wt.sb2 + size_t(l) * C + tid) : 0.f;
+  __syncthreads();
+  dense_global<C>(z, wt.sw1 + size_t(l) * C * C, red, tid);
+  __syncthreads();
+  if (tid < C) {
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) a += red[w * C + tid];
+    h1[tid] = round_bf16(fmaxf(a + sb1, 0.f));
+  }
+  __syncthreads();
+  dense_global<C>(h1, wt.sw2 + size_t(l) * C * C, red, tid);
+  __syncthreads();
+  if (tid < C) {
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) a += red[w * C + tid];
+    gate[tid] = round_bf16(1.f / (1.f + expf(-(a + sb2))));
+  }
+  __syncthreads();
+}
+
+// The wide entry: a cluster of n CTAs a board (grid n B), CTA r (its rank)
+// holding rows [row0, row1) of board blockIdx.x / n.  Shared memory: a
+// window of the board's rows [w0, w1) (its rows and the halo; every CTA's
+// window is laid out from offset 0, so a row of another CTA is found at
+// (row - its w0) rows into its window), then, at offsets alike in every
+// CTA, the depthwise output of its rows, the weight stages, the taps and
+// the vectors, with `part`, its SE column sums, last.
+template <int C>
+__global__ void __launch_bounds__(kThreads, 1)
+convnext_trunk_wide_kernel(const bf16* __restrict__ x, Weights wt, bf16* __restrict__ out,
+                           int H, int W, int L, int n) {
+  using G = Wide<C>;
+  constexpr int C8 = G::C8, RS = G::RS, KS = G::KS, MT = G::MT, NJ = G::NJ, NW = G::NW;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int board = blockIdx.x / n;
+  const int row0 = G::row0(rank, H, n), row1 = G::row0(rank + 1, H, n);
+  const int w0 = max(row0 - kR, 0), w1 = min(row1 + kR, H);
+  const int M = (row1 - row0) * W;                // this CTA's cells
+  const int mt = (M + 15) / 16;
+  const int col0 = warp * NW;                     // this warp's output columns
+
+  bf16* win = reinterpret_cast<bf16*>(smem_raw);  // [window rows * W][RS]
+  bf16* act = win + size_t(row0 - w0) * W * RS;   // this CTA's rows
+  bf16* ybuf = win + size_t(G::window_rows(H, n)) * W * RS;  // [own rows * W][RS]
+  bf16* stage = ybuf + size_t(G::own_rows(H, n)) * W * RS;   // [2][KS][RS]
+  bf16* dw = stage + 2 * KS * RS;                 // [49][C]
+  float* vec = reinterpret_cast<float*>(dw + kTaps * C);  // bn_s, bn_t, b1, b2
+  float* red = vec + 4 * C;                       // [kWarps][C] partial sums
+  float* z = red + kWarps * C;
+  float* h1 = z + C;
+  float* gate = h1 + C;
+  float* wnorm = gate + C;                        // [C] a product's column norms
+  float* part = wnorm + C;                        // [C] this CTA's SE column sums
+  // settle_cta's count and list of doubtful outputs, in `red` (the SE's,
+  // idle during the products)
+  unsigned* cnt = reinterpret_cast<unsigned*>(red);
+  int2* list = reinterpret_cast<int2*>(red + 2);
+  constexpr int kList = (kWarps * C - 2) / 2;
+  const float* bn_s = vec;
+  const float* bn_t = vec + C;
+  const float* b1 = vec + 2 * C;
+  const float* b2 = vec + 3 * C;
+
+  {
+    const bf16* src = x + (size_t(board) * H + row0) * W * C;
+    for (int i = tid; i < M * C8; i += kThreads)
+      cp_async16(act + (i / C8) * RS + (i % C8) * 8, src + i * 8);
+  }
+  // >> staging
+  stage_taps<C>(wt, 0, dw, vec, tid);
+  // << staging
+  cp_async_commit();
+
+  const int above = row0 - w0, halo = above + (w1 - row1);
+  for (int l = 0; l < L; ++l) {
+    cp_async_wait_all();
+    // every CTA's rows are this layer's input
+    cluster.sync();
+    for (int i = tid; i < halo * W * C8; i += kThreads) {
+      const int h = i / (W * C8), o = i % (W * C8);
+      const int row = h < above ? w0 + h : row1 + h - above;  // a board row
+      int src = 0;                                  // the CTA that holds it
+      while (G::row0(src + 1, H, n) <= row) ++src;
+      const bf16* from = cluster.map_shared_rank(win, src) +
+                         size_t(row - max(G::row0(src, H, n) - kR, 0)) * W * RS;
+      const size_t off = size_t(o / C8) * RS + (o % C8) * 8;
+      *reinterpret_cast<uint4*>(win + size_t(row - w0) * W * RS + off) =
+          *reinterpret_cast<const uint4*>(from + off);
+    }
+    // the halo is read before any CTA writes its rows in place
+    cluster.sync();
+
+    // >> depthwise
+    if (W == kStrip)
+      depthwise<C, true, true>(win, dw, ybuf, bn_s, bn_t, row1 - row0, W, tid, above, w1 - w0);
+    else
+      depthwise<C, false, true>(win, dw, ybuf, bn_s, bn_t, row1 - row0, W, tid, above, w1 - w0);
+    // << depthwise
+
+    // >> products
+    float acc[MT][NJ][4], rn[MT][2];
+    // product 1 (its first barrier orders the depthwise and the zeroed
+    // count before it)
+    if (tid == 0) *cnt = 0;
+    stream_product<C>(ybuf, M, wt.w1 + size_t(l) * C * C, stage, wnorm, acc, rn, tid, warp, lane);
+    settle_cta<C>(acc, rn, wnorm, b1, ybuf, wt.w1 + size_t(l) * C * C, M, col0, g, t, true, cnt,
+                  list, kList, tid);
+    // every warp has read the depthwise rows and the list: the relu output
+    // replaces the rows
+    __syncthreads();
+    if (tid == 0) *cnt = 0;
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int col = col0 + j * 8 + 2 * t;
+        const float bx = b1[col], by = b1[col + 1];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = m * 16 + g + 8 * h;
+          if (m < mt && row < M)
+            *reinterpret_cast<bf2*>(ybuf + row * RS + col) = __floats2bfloat162_rn(
+                fmaxf(acc[m][j][2 * h] + bx, 0.f), fmaxf(acc[m][j][2 * h + 1] + by, 0.f));
+        }
+      }
+
+    // product 2, the residual in place and the SE column sums
+    stream_product<C>(ybuf, M, wt.w2 + size_t(l) * C * C, stage, wnorm, acc, rn, tid, warp, lane);
+    float sums[NJ][2];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) sums[j][0] = sums[j][1] = 0.f;
+    settle_cta<C>(acc, rn, wnorm, b2, ybuf, wt.w2 + size_t(l) * C * C, M, col0, g, t, false, cnt,
+                  list, kList, tid);
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      if (m < mt) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const int col = col0 + j * 8 + 2 * t;
+          const float bx = b2[col], by = b2[col + 1];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = m * 16 + g + 8 * h;
+            if (row < M) {
+              bf2* xp = reinterpret_cast<bf2*>(act + row * RS + col);
+              const float2 xo = __bfloat1622float2(*xp);
+              const float y0 = round_bf16(acc[m][j][2 * h] + bx);
+              const float y1 = round_bf16(acc[m][j][2 * h + 1] + by);
+              const bf2 xr = __floats2bfloat162_rn(y0 + xo.x, y1 + xo.y);
+              *xp = xr;
+              const float2 xf = __bfloat1622float2(xr);
+              sums[j][0] += xf.x;
+              sums[j][1] += xf.y;
+            }
+          }
+        }
+      }
+    }
+    // sum over the 8 rows a warp's lanes hold (lanes of one t): the warp
+    // owns its columns, so these are the CTA's column sums
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float v = sums[j][e];
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        if (g == 0) part[col0 + j * 8 + 2 * t + e] = v;
+      }
+    // << products
+
+    // every CTA's column sums are written, and the taps and vectors of
+    // layer l are dead: fetch layer l+1's
+    cluster.sync();
+    // >> staging
+    if (l + 1 < L) stage_taps<C>(wt, l + 1, dw, vec, tid);
+    // << staging
+    cp_async_commit();
+    // >> se
+    // squeeze-excitation gate: the mean over the board of the n CTAs'
+    // sums, added in rank order
+    if (tid < C) {
+      float a = 0.f;
+      for (int r = 0; r < n; ++r) a += cluster.map_shared_rank(part, r)[tid];
+      z[tid] = round_bf16(a / float(H * W));
+    }
+    se_global<C>(wt, l, z, red, h1, gate, tid);
+    // << se
+    // >> scale
+    scale_channels<C>(act, gate, M, tid);
+    // << scale
+  }
+  cp_async_wait_all();
+  // no CTA leaves while another may still read its shared memory
+  cluster.sync();
+
+  {
+    uint4* dst = reinterpret_cast<uint4*>(out + (size_t(board) * H + row0) * W * C);
+    for (int i = tid; i < M * C8; i += kThreads)
+      dst[i] = *reinterpret_cast<const uint4*>(act + (i / C8) * RS + (i % C8) * 8);
+  }
+}
+
 template <int C>
 cudaError_t prepare(int H, int W, size_t* smem) {
   *smem = Trunk<C>::bytes(H, W);
@@ -1169,17 +1696,17 @@ cudaError_t occupancy(int H, int W, int* info) {
   return err;
 }
 
-// the cluster entry's launch configuration (B boards, two CTAs each)
+// a cluster entry's launch configuration (B boards, n CTAs each)
 struct ClusterLaunch {
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
-  ClusterLaunch(int B, size_t smem, void* stream) {
-    cfg.gridDim = dim3(2 * B);
+  ClusterLaunch(int B, size_t smem, void* stream, int n = 2) {
+    cfg.gridDim = dim3(n * B);
     cfg.blockDim = dim3(kThreads);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = static_cast<cudaStream_t>(stream);
     attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = 2;
+    attr[0].val.clusterDim.x = n;
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
@@ -1225,6 +1752,45 @@ cudaError_t occupancy_cluster(int H, int W, int* info) {
   info[3] = static_cast<int>(attr.localSizeBytes);
   ClusterLaunch cl(1, smem, nullptr);
   return cudaOccupancyMaxActiveClusters(&info[4], convnext_trunk_cluster_kernel<C>, &cl.cfg);
+}
+
+template <int C>
+cudaError_t prepare_wide(int H, int W, int n, size_t* smem) {
+  *smem = Wide<C>::bytes(H, W, n);
+  return cudaFuncSetAttribute(convnext_trunk_wide_kernel<C>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(*smem));
+}
+
+template <int C>
+cudaError_t launch_wide(int B, int n, const void* x, const Weights& wt, void* out, int H, int W,
+                        int L, void* stream) {
+  size_t smem;
+  cudaError_t err = prepare_wide<C>(H, W, n, &smem);
+  if (err != cudaSuccess) return err;
+  ClusterLaunch cl(B, smem, stream, n);
+  err = cudaLaunchKernelEx(&cl.cfg, convnext_trunk_wide_kernel<C>, static_cast<const bf16*>(x),
+                           wt, static_cast<bf16*>(out), H, W, L, n);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <int C>
+cudaError_t occupancy_wide(int H, int W, int n, int* info) {
+  size_t smem;
+  cudaError_t err = prepare_wide<C>(H, W, n, &smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, convnext_trunk_wide_kernel<C>);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[0], convnext_trunk_wide_kernel<C>,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return err;
+  info[1] = attr.numRegs;
+  info[2] = static_cast<int>(smem + attr.sharedSizeBytes);
+  info[3] = static_cast<int>(attr.localSizeBytes);
+  ClusterLaunch cl(1, smem, nullptr, n);
+  return cudaOccupancyMaxActiveClusters(&info[4], convnext_trunk_wide_kernel<C>, &cl.cfg);
 }
 
 }  // namespace
@@ -1280,12 +1846,33 @@ extern "C" int ag_convnext_trunk_cluster(const void* x, const void* dw, const vo
   return static_cast<int>(launch_cluster<128>(B, x, wt, out, H, W, L, stream));
 }
 
+// The wide entry: n = `ctas` CTAs a board (1 to 8), C = 256, where each
+// CTA holds at most Wide<256>::MT m16 tiles of cells and
+// Wide<256>::bytes(H, W, n) fits the card's opt-in shared memory.
+extern "C" int ag_convnext_trunk_wide(const void* x, const void* dw, const void* bn_s,
+                                      const void* bn_t, const void* w1, const void* b1,
+                                      const void* w2, const void* b2, const void* sw1,
+                                      const void* sb1, const void* sw2, const void* sb2,
+                                      void* out, int B, int H, int W, int C, int L, int ctas,
+                                      void* stream) {
+  if (C != 256 || !Wide<256>::takes(H, W, ctas)) return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0) return 0;
+  Weights wt;
+  set_weights(&wt, dw, bn_s, bn_t, w1, b1, w2, b2, sw1, sb1, sw2, sb2);
+  return static_cast<int>(launch_wide<256>(B, ctas, x, wt, out, H, W, L, stream));
+}
+
 // What an entry at width C on H x W boards gets from the card (`ctas` 1:
-// the one-CTA entry, 2: the cluster entry): info[0] CTAs per SM, info[1]
-// registers per thread, info[2] shared memory per CTA (bytes), info[3]
-// local memory (spills) per thread (bytes), info[4] clusters the card
-// holds at once (0 for the one-CTA entry).
+// the one-CTA entry, 2: the cluster entry; at C = 256 the wide entry at
+// `ctas` CTAs a board): info[0] CTAs per SM, info[1] registers per thread,
+// info[2] shared memory per CTA (bytes), info[3] local memory (spills) per
+// thread (bytes), info[4] clusters the card holds at once (0 for the
+// one-CTA entry).
 extern "C" int ag_convnext_trunk_occupancy(int C, int H, int W, int ctas, int* info) {
+  if (C == 256) {
+    if (!Wide<256>::takes(H, W, ctas)) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(occupancy_wide<256>(H, W, ctas, info));
+  }
   if (ctas == 2) {
     if (C != 128 || H < 2 * kR) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(occupancy_cluster<128>(H, W, info));

@@ -115,6 +115,18 @@ def windows_at_one(
     return (cells.reshape(bsz, 4, -1) << shifts).sum(-1)  # disjoint bit fields: sum == OR
 
 
+def windows_at_many(
+    board: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor
+) -> torch.Tensor:
+    """Packed windows for Q query cells per board: [B, H, W] + [B, Q] ->
+    [B, Q, 4] int64, as the reference's one-hot reduce gives them: a query
+    whose flat index rows * W + cols lies on the board gets that cell's
+    windows (a column off its row aliases another cell), any other 0.
+    Callers mask validity themselves.  `windows_at` without overlays
+    computes just that."""
+    return windows_at(board, rows, cols)
+
+
 def windows_at(
     board: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
     overlay_rows: torch.Tensor | None = None, overlay_cols: torch.Tensor | None = None,
@@ -356,6 +368,15 @@ def _resolve(tables, board, wins, rq, cq, ov, depth, windows, pts):
     f_low = _naive_forbidden(threat_type(tables, torch.where(open3 & ~certain_real, 0, pts), False))
     f_high = _naive_forbidden(threat_type(tables, torch.where(open3 & ~maybe_real, 0, pts), False))
     return f_high, f_low != f_high
+
+
+def pattern_types(tables: RuleTables, windows: torch.Tensor, sign_is_circle) -> torch.Tensor:
+    """PatternType per direction of packed windows [..., 4] (int32), for the
+    side `sign_is_circle` (a bool broadcastable to `windows.shape[:-1]`):
+    the reference's pattern-table lookup (`bitwise.classify_by_table`)."""
+    cross, circle = bitwise.classify_by_table(windows, GameRules(tables.rules))
+    side = torch.as_tensor(sign_is_circle, device=windows.device)
+    return torch.where(side[..., None], circle, cross)
 
 
 def threat_type(tables: RuleTables, pts: torch.Tensor, sign_is_circle) -> torch.Tensor:

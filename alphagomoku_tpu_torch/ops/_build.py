@@ -38,6 +38,7 @@ SIGNATURES = {
     "ag_score_scan_occupancy": [_I, _I, _I, _P],
     "ag_convnext_trunk": [_P] * 13 + [_I, _I, _I, _I, _I, _P],
     "ag_convnext_trunk_cluster": [_P] * 13 + [_I, _I, _I, _I, _I, _P],
+    "ag_convnext_trunk_wide": [_P] * 13 + [_I, _I, _I, _I, _I, _I, _P],
     "ag_convnext_trunk_occupancy": [_I, _I, _I, _I, _P],
 }
 

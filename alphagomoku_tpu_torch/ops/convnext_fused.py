@@ -8,19 +8,24 @@ body's numerics: bf16 storage, f32 accumulation in the depthwise taps and
 the products, BatchNorm folded to a per-channel scale and shift (inference
 only), and bf16 casts at the same points.
 
-The kernel is built for the widths `KERNEL_WIDTHS` (64 and 128); like the
-Pallas kernel, the wrapper takes any C up to 128 and any board up to 20x20.
-`trunk_plan(C, H, W)` picks the launch by the shape alone:
+The kernel is built for the widths `KERNEL_WIDTHS` (64, 128 and 256);
+like the Pallas kernel, the wrapper takes any C up to 256 and any board up
+to 20x20.  `trunk_plan(C, H, W)` picks the launch by the shape alone:
 
-- C below 128 runs at the next built width, `kernel_width(C)`, on channels
-  padded with zeros (`pad_trunk`), which is exact: a zero channel stays
-  zero through every block and adds +0 to every real channel's sums;
-- one CTA holds a board (`convnext_trunk_kernel<C>`) where its shared
-  memory fits the card (`SM90_SMEM_OPTIN`); C = 128 on boards above 252
-  cells (16x16 to 20x20) takes a cluster of two CTAs a board instead
-  (`convnext_trunk_cluster_kernel<128>`), each holding half of the rows.
+- C below a built width runs at the next one, `kernel_width(C)`, on
+  channels padded with zeros (`pad_trunk`), which is exact: a zero channel
+  stays zero through every block and adds +0 to every real channel's sums;
+- up to 128 channels, one CTA holds a board (`convnext_trunk_kernel<C>`)
+  where its shared memory fits the card (`SM90_SMEM_OPTIN`); C = 128 on
+  boards above 252 cells (16x16 to 20x20) takes a cluster of two CTAs a
+  board instead (`convnext_trunk_cluster_kernel<128>`), each holding half
+  of the rows;
+- C = 256 (129 to 256 padded) runs the wide entry
+  (`convnext_trunk_wide_kernel<256>`) on every board: a cluster of 1 to 8
+  CTAs a board, the least whose CTAs fit, each holding a band of rows and
+  streaming w1 and w2 from L2.
 
-C above 128 raises NotImplementedError (ROADMAP.md §2 item 3).
+C above 256 raises NotImplementedError (ROADMAP.md §2 item 3).
 
 `fused_apply(weights, planes)` is the full ConvNextPVQMraw forward (stem,
 fused trunk, heads) with its weights passed in explicitly as a
@@ -47,7 +52,7 @@ __all__ = [
     "pad_trunk", "pad_trunk_weights",
 ]
 
-KERNEL_WIDTHS = (64, 128)  # the filter counts csrc/convnext_trunk.cu is built for
+KERNEL_WIDTHS = (64, 128, 256)  # the filter counts csrc/convnext_trunk.cu is built for
 # the largest dynamic shared memory a block may opt into on sm_90, the only
 # architecture the kernel is built for (227 KiB)
 SM90_SMEM_OPTIN = 232448
@@ -115,14 +120,14 @@ def pack_trunk_weights(net: AGNetwork) -> TrunkWeights:
 
 def kernel_width(c: int) -> int:
     """The width the trunk kernel runs a C-filter trunk at: the next built
-    width (`KERNEL_WIDTHS`).  C above 128 raises NotImplementedError."""
+    width (`KERNEL_WIDTHS`).  C above 256 raises NotImplementedError."""
     for width in KERNEL_WIDTHS:
         if c <= width:
             return width
     raise NotImplementedError(
-        f"fused_trunk kernel takes up to {KERNEL_WIDTHS[-1]} filters, got {c}: w1 and w2 of a "
-        "wider trunk do not fit one CTA's shared memory (ROADMAP.md §2 item 3: trunk widths "
-        "above 128)"
+        f"fused_trunk kernel takes up to {KERNEL_WIDTHS[-1]} filters, got {c}: a CTA of a wider "
+        "trunk cannot hold its taps, vectors and a weight stage beside a band of rows "
+        "(ROADMAP.md §2 item 3: trunk widths above 256)"
     )
 
 
@@ -239,14 +244,51 @@ def _cluster_cta_bytes(c: int, h: int, w: int) -> int:
         4 * c + 2 * 8 * c + 3 * c + 2 * c + c) * 4
 
 
+# the wide entry (`Wide<C>` in csrc/convnext_trunk.cu): k rows of a
+# streamed weight stage, m16 tiles a CTA's rows may hold, CTAs a board at
+# most (the portable cluster size)
+WIDE_STAGE_ROWS = 32
+WIDE_MAX_CELLS = 16 * 8
+WIDE_MAX_CTAS = 8
+
+
+def _wide_rows(h: int, n: int) -> list[int]:
+    """The first rows of the wide entry's n CTAs on an h-row board, and h."""
+    return [r * h // n for r in range(n + 1)]
+
+
+def _wide_cta_bytes(c: int, h: int, w: int, n: int) -> int:
+    """`Wide<C>::bytes`: a CTA of the wide entry's n-CTA cluster holds a
+    window of its rows and the 3 halo rows above and below them (the
+    largest window of the n), the depthwise output of its rows (at most
+    ceil(h / n)), two stages of `WIDE_STAGE_ROWS` rows of w1 or w2, the
+    taps, and the f32 BN and bias vectors, the SE dense's per-warp sums (8
+    warps), z, h1, the gate, a product's column norms and its SE column
+    sums."""
+    rs = c + 8
+    rows = _wide_rows(h, n)
+    window = max(min(rows[r + 1] + 3, h) - max(rows[r] - 3, 0) for r in range(n))
+    own = -(-h // n)
+    return ((window + own) * w * rs + 2 * WIDE_STAGE_ROWS * rs + 49 * c) * 2 + (
+        4 * c + 8 * c + 3 * c + c + c) * 4
+
+
 def trunk_plan(c: int, h: int, w: int) -> TrunkPlan:
     """The launch of the trunk kernel for a C-filter trunk on h x w boards,
-    by the shape alone: the width `kernel_width(c)`; one CTA a board where
-    its shared memory fits `SM90_SMEM_OPTIN`, else (C = 128 above 252
-    cells: every board up to 20x20 has one) a cluster of two CTAs a board.
-    Raises NotImplementedError for C above 128 and for a board that fits
-    neither."""
+    by the shape alone: the width `kernel_width(c)`; up to 128 channels one
+    CTA a board where its shared memory fits `SM90_SMEM_OPTIN`, else (C =
+    128 above 252 cells: every board up to 20x20 has one) a cluster of two
+    CTAs a board; at 256 the wide entry with the fewest CTAs a board (up to
+    `WIDE_MAX_CTAS`) each holding at most `WIDE_MAX_CELLS` cells within
+    that limit.  Raises NotImplementedError for C above 256 and for a board
+    that fits no entry."""
     width = kernel_width(c)
+    if width == 256:
+        for n in range(1, min(WIDE_MAX_CTAS, h) + 1):
+            size = _wide_cta_bytes(width, h, w, n)
+            if -(-h // n) * w <= WIDE_MAX_CELLS and size <= SM90_SMEM_OPTIN:
+                return TrunkPlan("convnext_trunk_wide_kernel", width, n, size)
+        raise NotImplementedError(f"fused_trunk kernel: no entry for C={c} on {h}x{w} boards")
     one = _one_cta_bytes(width, h, w)
     if one <= SM90_SMEM_OPTIN:
         return TrunkPlan("convnext_trunk_kernel", width, 1, one)
@@ -286,20 +328,27 @@ def fused_trunk(x: torch.Tensor, w: TrunkWeights) -> torch.Tensor:
             _check(name, t, torch.float32, (nl, cp), dev)
     out = torch.empty_like(x)
     lib = _build.library()
-    launch = lib.ag_convnext_trunk if plan.ctas == 1 else lib.ag_convnext_trunk_cluster
-    err = launch(
-        x.data_ptr(), *(getattr(w, n).data_ptr() for n in TrunkWeights._fields),
-        out.data_ptr(), bsz, h, wd, cp, nl, torch.cuda.current_stream(dev).cuda_stream,
-    )
+    args = (x.data_ptr(), *(getattr(w, n).data_ptr() for n in TrunkWeights._fields),
+            out.data_ptr(), bsz, h, wd, cp, nl)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    cluster = plan.entry == "convnext_trunk_cluster_kernel"
+    wide = plan.entry == "convnext_trunk_wide_kernel"
+    if wide:
+        err = lib.ag_convnext_trunk_wide(*args, plan.ctas, stream)
+    elif cluster:
+        err = lib.ag_convnext_trunk_cluster(*args, stream)
+    else:
+        err = lib.ag_convnext_trunk(*args, stream)
     _build.check(err, "fused_trunk")
     fused_trunk.launches += 1
-    if plan.ctas == 2:
-        fused_trunk.cluster_launches += 1
+    fused_trunk.cluster_launches += cluster
+    fused_trunk.wide_launches += wide
     return out if cp == c else out[..., :c].contiguous()
 
 
-fused_trunk.launches = 0  # every launch, of either entry
+fused_trunk.launches = 0  # every launch, of any entry
 fused_trunk.cluster_launches = 0  # the cluster entry's
+fused_trunk.wide_launches = 0  # the wide entry's
 
 
 def trunk_smem_bytes(c: int, h: int, w: int) -> int:
@@ -312,8 +361,9 @@ def trunk_occupancy(c: int, h: int = 15, w: int = 15) -> dict:
     """What the trunk kernel's entry for a C-filter trunk on h x w boards
     (`trunk_plan`) gets from the current card: CTAs per SM, registers per
     thread, shared memory per CTA (bytes), local memory per thread (bytes;
-    spills) and, for the cluster entry, the clusters the card holds at
-    once (0 for the one-CTA entry)."""
+    spills) and, for the cluster and wide entries, the clusters the card
+    holds at once (0 for the one-CTA entry), with the entry, its width and
+    its CTAs a board."""
     import ctypes
 
     plan = trunk_plan(c, h, w)
@@ -321,7 +371,7 @@ def trunk_occupancy(c: int, h: int = 15, w: int = 15) -> dict:
     _build.check(_build.library().ag_convnext_trunk_occupancy(
         plan.width, h, w, plan.ctas, info), "trunk_occupancy")
     return dict(zip(("ctas_per_sm", "registers", "smem_bytes", "local_bytes", "clusters"), info),
-                entry=plan.entry, width=plan.width)
+                entry=plan.entry, width=plan.width, ctas=plan.ctas)
 
 
 # ---------------------------------------------------------------------------

@@ -12,16 +12,17 @@ compiled to a cubin with the port's nvcc flags (`ops/_build.py`), under
 instructions are compared line by line.  The default kernels: for
 `score_scan.cu` the K <= 32 instantiations, `score_scan_kernel<16>`,
 `<32>`, `score_backup_kernel<16>`, `<32>`; for `convnext_trunk.cu` the
-one-CTA trunk kernels `convnext_trunk_kernel<64>` and `<128>`.  Prints one
-line per kernel and exits 1 if any differs.
+one-CTA trunk kernels `convnext_trunk_kernel<64>` and `<128>` and the
+cluster entry `convnext_trunk_cluster_kernel<128>`.  Prints one line per
+kernel and exits 1 if any differs.
 
 The K <= 32 kernels and the wide ones share device helpers (the chain,
 `finish_levels`; the `ld_*` loads; `invert_up`), so an edit made for the
 wide kernels can change the narrow ones, which every search launches.
 Run this against the parent checkout on any change to the shared code:
 identical SASS shows the narrow kernels untouched without timing them.
-The same holds for the one-CTA trunk kernels and the cluster entry of
-`convnext_trunk.cu`, which share its device functions.
+The same holds for the one-CTA trunk kernels, the cluster entry and the
+wide entry of `convnext_trunk.cu`, which share its device functions.
 """
 
 from __future__ import annotations
@@ -40,7 +41,8 @@ NARROW = ("score_scan_kernelILi16E", "score_scan_kernelILi32E", "score_backup_ke
           "score_backup_kernelILi32E")
 DEFAULT_KERNELS = {
     "score_scan.cu": NARROW,
-    "convnext_trunk.cu": ("convnext_trunk_kernelILi64E", "convnext_trunk_kernelILi128E"),
+    "convnext_trunk.cu": ("convnext_trunk_kernelILi64E", "convnext_trunk_kernelILi128E",
+                          "convnext_trunk_cluster_kernelILi128E"),
 }
 
 

@@ -8,10 +8,12 @@ Each DIR is a checkout of this repo (or the repo itself); its
 `build/trunk_phases/` once whole and once per phase with that phase's
 lines taken out, each copy is built by `nvcc` into a library of its own,
 and all are timed here at B = 1280 on 15x15 boards: C = 64, L = 6 with
-the flagship `network_23` weights and C = 128, L = 8 with the seeded 8x128
-network (`chip_smoke.WIDE_SEED`), each on the stem's output of the bench
-boards.  A time is CUDA events around 20 launches back to back, median of
-3 (as `chip_smoke.py` times the trunk), and the whole source is timed
+the flagship `network_23` weights, C = 128, L = 8 with the seeded 8x128
+network (`chip_smoke.WIDE_SEED`) and, where the checkout has the wide
+entry, C = 256, L = 8 with the seeded 8x256 network (`SHAPES_SEED`), each
+on the stem's output of the bench boards.  A time is CUDA events around
+20 launches back to back, median of 3 (as `chip_smoke.py` times the
+trunk), and the whole source is timed
 before and after its cut copies.  A phase's share is (whole - cut) /
 whole: what the kernel saves without that phase.  Shares need not sum to
 1, since phases overlap (across warps, and across CTAs where two share an
@@ -102,8 +104,8 @@ def build_variants(checkout: Path, tag: str) -> dict[str, Path]:
     return libs
 
 
-def trunk_inputs():
-    """(tag, x, TrunkWeights) at both built widths, B = 1280."""
+def trunk_inputs(tags=("C64", "C128", "C256")):
+    """(tag, x, TrunkWeights) at each built width of `tags`, B = 1280."""
     import torch
 
     sys.path.insert(0, str(ROOT))
@@ -124,7 +126,10 @@ def trunk_inputs():
         "C64": network_from_flax(checkpoint.load(cs.CKPT)),
         "C128": init_random_(create_network("ConvNextPVQMraw", blocks=8, filters=128),
                              torch.Generator().manual_seed(cs.WIDE_SEED)),
+        "C256": init_random_(create_network("ConvNextPVQMraw", blocks=8, filters=256),
+                             torch.Generator().manual_seed(cs.SHAPES_SEED)),
     }
+    nets = {tag: nets[tag] for tag in tags}
     with torch.no_grad():
         planes = FEAT.unpack_raw_planes(FEAT.encode(tables, boards, stm))
         for tag, net in nets.items():
@@ -139,15 +144,20 @@ def time_variant(so: Path, x, tw) -> float:
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     from alphagomoku_tpu_torch.ops import _build
+    from alphagomoku_tpu_torch.ops import convnext_fused as CF
 
     lib = ctypes.CDLL(str(so))
-    fn = lib.ag_convnext_trunk
-    fn.argtypes = _build.SIGNATURES["ag_convnext_trunk"]
+    b, h, w, c = x.shape
+    plan = CF.trunk_plan(c, h, w)
+    wide = plan.entry == "convnext_trunk_wide_kernel"
+    name = "ag_convnext_trunk_wide" if wide else "ag_convnext_trunk"
+    fn = getattr(lib, name)
+    fn.argtypes = _build.SIGNATURES[name]
     fn.restype = ctypes.c_int
     out = torch.empty_like(x)
-    b, h, w, c = x.shape
     args = (x.data_ptr(), *(t.data_ptr() for t in tw), out.data_ptr(), b, h, w, c,
-            tw.dw.shape[0], torch.cuda.current_stream().cuda_stream)
+            tw.dw.shape[0], *((plan.ctas,) if wide else ()),
+            torch.cuda.current_stream().cuda_stream)
 
     def launch():
         err = fn(*args)
@@ -173,6 +183,9 @@ def main() -> int:
     report = {}
     for width, x, tw in trunk_inputs():
         for tag, variants in libs.items():
+            if width == "C256" and not hasattr(ctypes.CDLL(str(variants["whole"])),
+                                               "ag_convnext_trunk_wide"):
+                continue  # a checkout from before the wide entry
             whole = [time_variant(variants["whole"], x, tw)]
             cuts = {p: time_variant(variants[f"no_{p}"], x, tw) for p in PHASES}
             whole.append(time_variant(variants["whole"], x, tw))

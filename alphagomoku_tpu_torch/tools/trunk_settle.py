@@ -143,6 +143,9 @@ def run_once(so: Path, x, tw):
 
 
 PER_BOARD = 256
+# the widths studied: the one-CTA kernels' (the wide entry's settle reads
+# its weights from global memory, and the counter counts settle() alone)
+ONE_CTA = ("C64", "C128")
 
 
 def main() -> int:
@@ -163,7 +166,7 @@ def main() -> int:
     # the plain version's products sum k ascending (`_products`); how often
     # the library's f32 matmul leaves that order, at one board's rows (15x15,
     # 20x20) and at the batch's, on this checkpoint's and seed's weights
-    for tag, x, tw in trunk_inputs():
+    for tag, x, tw in trunk_inputs(ONE_CTA):
         c = x.shape[-1]
         a = x.reshape(-1, c).float()
         for rows in (225, 400, a.shape[0]):
@@ -173,7 +176,7 @@ def main() -> int:
             report[f"{tag}.matmul_rows_{rows}"] = share
             print(f"{tag}: torch.matmul leaves the k-ascending sum in {share:.4f} of the f32 "
                   f"outputs at {rows} rows", flush=True)
-    for tag, x, tw in trunk_inputs():
+    for tag, x, tw in trunk_inputs(ONE_CTA):
         ref = CF.fused_trunk_plain(x, tw)
         outputs = 2 * x.numel() * tw.dw.shape[0]
         x1 = x[:1].contiguous()

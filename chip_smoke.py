@@ -193,12 +193,22 @@ Phases, one line each (any failure exits non-zero):
      boards of `TRUNK_SHAPES`, each a seeded `init_random_` network built
      for its board, as in phase 5: C = 16 and 96 (zero channels padded to
      64 and 128), C = 128 on 16x16 and 20x20 (the cluster entry,
-     `convnext_trunk_cluster_kernel<128>`: two CTAs a board), each held
-     within TRUNK_LIMITS of the plain trunk and timed beside it, the
-     library trunk (unpadded weights) and the bound (the trunk's own C),
-     with the entry's occupancy; then one simulation step of the 20x20
-     8x128 network (`SEARCH20_BATCH` boards), every trunk launch the
-     cluster entry's, and `SEARCH20_TIMED` warm steps timed after it;
+     `convnext_trunk_cluster_kernel<128>`: two CTAs a board), C = 256 on
+     15x15 and 20x20, C = 192 on 15x15 and C = 136 on 16x16 (the wide
+     entry, `convnext_trunk_wide_kernel<256>`: 1 to 8 CTAs a board, 129 to
+     255 on zero channels), each held within TRUNK_LIMITS of the plain
+     trunk and timed beside it, the library trunk (unpadded weights) and
+     the bound (the trunk's own C), with the entry's occupancy; then one
+     simulation step each of the 20x20 8x128 and 8x256 networks
+     (`SEARCH20_BATCH` boards), every trunk launch the cluster entry's or
+     the wide entry's, and `SEARCH20_TIMED` warm steps timed after each;
+     the seeded 8x256 network at the bench configuration: its trunk held
+     and timed at B = 1280, `WIDE256_SIMS` sims of its search (every trunk
+     launch the wide entry's) and 5 steps traced; the launcher's engine
+     with a seeded 8x256 network (`ProgramManager(blocks=8, filters=256)`,
+     START 20, one TURN, a 50-sim search at B = 1) answering an empty
+     cell on the wide entry; and `vectorized.windows_at_many` and
+     `pattern_types` on the card bit-equal to the CPU;
  25. tensor parallelism (last) - `tools/dryrun_multichip.py` at n = 2 as
      child processes on this one card over gloo with CUDA tensors, mesh
      (1, 2): the float32 flagship's column-parallel step held against the
@@ -301,7 +311,8 @@ def _counts() -> dict:
 
     return {"score_scan": SSM.score_scan.launches, "score_backup": SSM.score_backup.launches,
             "fused_trunk": CF.fused_trunk.launches,
-            "fused_trunk_cluster": CF.fused_trunk.cluster_launches}
+            "fused_trunk_cluster": CF.fused_trunk.cluster_launches,
+            "fused_trunk_wide": CF.fused_trunk.wide_launches}
 
 
 def _zero_counts() -> None:
@@ -309,7 +320,7 @@ def _zero_counts() -> None:
     from alphagomoku_tpu_torch.ops import score_scan as SSM
 
     SSM.score_scan.launches = SSM.score_backup.launches = 0
-    CF.fused_trunk.launches = CF.fused_trunk.cluster_launches = 0
+    CF.fused_trunk.launches = CF.fused_trunk.cluster_launches = CF.fused_trunk.wide_launches = 0
 
 
 def bench_boards(batch: int, seed: int = 0):
@@ -521,11 +532,12 @@ def without_last(tw, name: str):
 PROFILE_STEPS = 5
 
 
-def trunk_phase(net, planes, tag: str) -> dict:
+def trunk_phase(net, planes, tag: str, plain_reps: int = 5) -> dict:
     """The trunk kernel against `fused_trunk_plain` on the stem output of
     `planes`: all blocks, each block alone, kernels fed a bias left out
-    (which must be rejected), timings, the library yardstick and the
-    bound.  Returns the trunk's `kernels` entry at this width."""
+    (which must be rejected), timings (the plain trunk's median of
+    `plain_reps` calls), the library yardstick and the bound.  Returns the
+    trunk's `kernels` entry at this width."""
     import torch
     from alphagomoku_tpu_torch.ops import convnext_fused as CF
 
@@ -558,7 +570,8 @@ def trunk_phase(net, planes, tag: str) -> dict:
                           for n, f in faults.items()), flush=True)
         trunk_ms = time_cuda(lambda: [CF.fused_trunk(x, tw) for _ in range(20)], reps=3) / 20
         trunk_call_ms = time_cuda(lambda: CF.fused_trunk(x, tw))
-        trunk_plain_ms = time_cuda(lambda: CF.fused_trunk_plain(x, tw), reps=5)
+        trunk_plain_ms = time_cuda(lambda: CF.fused_trunk_plain(x, tw), reps=plain_reps,
+                                   warmup=min(3, plain_reps))
         # the library computes the C-filter function: no padded channels
         tw_c = unpadded(tw, x.shape[-1])
         lib_out = library_trunk(x, tw_c)
@@ -567,7 +580,8 @@ def trunk_phase(net, planes, tag: str) -> dict:
     occ = CF.trunk_occupancy(C, h, w)
     print(f"{tag} occupancy: C={C} {h}x{w}: {occ['entry']} at width {occ['width']}, "
           f"{occ['registers']} registers per thread, {occ['ctas_per_sm']} CTAs per SM"
-          + (f" ({occ['clusters']} clusters of 2 at once)" if occ["clusters"] else "")
+          + (f" ({occ['clusters']} clusters of {occ['ctas']} at once)" if occ["clusters"]
+             else "")
           + f", {occ['smem_bytes']} bytes of shared memory per CTA, {occ['local_bytes']} bytes "
           "of local memory (spills) per thread", flush=True)
     # the bound of the trunk's own function, at its C (a padded width's
@@ -620,15 +634,17 @@ def network_phase(weights, planes, tag: str) -> None:
 
 
 def search_phase(weights, tables, cfg, boards, stm, sims: int, tag: str, net_apply=None,
-                 trunk_launches=None, raw_input: bool = True, cluster_trunk: bool = False,
+                 trunk_launches=None, raw_input: bool = True, trunk_entry: str | None = None,
                  **search_kw):
     """One `run_search` of `sims` simulations (through `net_apply`, by
     default `fused_apply`; `search_kw` passed on) with the kernels' launch
     counts set to 0 just before it and read just after: backup B once a
     step (score_backup at leaf_batch 1, score_scan through
     score_backup_paths above it), the trunk `trunk_launches` times (by
-    default once a step and once for the roots); the search's invariants;
-    a line with sims/s and launches per step.  Returns the final state and
+    default once a step and once for the roots), and as many times the
+    count of the entry named by `trunk_entry` ("fused_trunk_cluster" or
+    "fused_trunk_wide"; the other entry's count 0); the search's
+    invariants; a line with sims/s and launches per step.  Returns the final state and
     the launch counts."""
     import torch
     from alphagomoku_tpu_torch.ops import convnext_fused as CF
@@ -650,7 +666,8 @@ def search_phase(weights, tables, cfg, boards, stm, sims: int, tag: str, net_app
     batched = cfg.leaf_batch > 1
     if launches != {"score_scan": steps if batched else 0,
                     "score_backup": 0 if batched else steps, "fused_trunk": trunk,
-                    "fused_trunk_cluster": trunk if cluster_trunk else 0}:
+                    "fused_trunk_cluster": trunk if trunk_entry == "fused_trunk_cluster" else 0,
+                    "fused_trunk_wide": trunk if trunk_entry == "fused_trunk_wide" else 0}:
         raise SystemExit(f"{tag}: the kernels were not launched once per step inside "
                          f"run_search: {launches}")
     tree = state.tree
@@ -915,7 +932,8 @@ def selfplay_run(tag, weights, tables, mcfg, scfg, chunk: int, stop_after_first:
     launches = _counts()
     moves, sims = len(checks.seconds), scfg.num_simulations
     want = {"score_scan": 0, "score_backup": moves * sims,
-            "fused_trunk": moves * (sims + 1) + 1 + calls, "fused_trunk_cluster": 0}
+            "fused_trunk": moves * (sims + 1) + 1 + calls, "fused_trunk_cluster": 0,
+            "fused_trunk_wide": 0}
     if result is None or snap.exists() or launches != want:
         raise SystemExit(f"{tag}: launches {launches}, expected {want} for {moves} moves "
                          f"searched, or the run did not finish")
@@ -1363,7 +1381,8 @@ def train_phase(paths: dict, generation: dict) -> dict:
     res = mgr.last_gating
     sims = mgr.cfg.num_simulations
     want = {"score_scan": 0, "score_backup": plies[0] * 2 * sims,
-            "fused_trunk": plies[0] * 2 * (sims + 1) + 1, "fused_trunk_cluster": 0}
+            "fused_trunk": plies[0] * 2 * (sims + 1) + 1, "fused_trunk_cluster": 0,
+            "fused_trunk_wide": 0}
     line = json.loads((wd / "gating.txt").read_text().splitlines()[-1])
     ended = (res.outcomes != int(GameOutcome.UNKNOWN)).sum() + res.truncated
     if (line["iteration"] != 29 or int(res.pentanomial.sum()) != TRAIN_GATING_GAMES // 2
@@ -1946,7 +1965,7 @@ def zoo_phase(generation: dict, flagship_backup_ms: float) -> dict:
             raise SystemExit("zoo: the selfcheck search failed in process")
         paths["selfcheck"] = _counts()
         if paths["selfcheck"] != {"score_scan": 0, "score_backup": 16, "fused_trunk": 0,
-                                  "fused_trunk_cluster": 0}:
+                                  "fused_trunk_cluster": 0, "fused_trunk_wide": 0}:
             raise SystemExit(f"zoo: the selfcheck search launched {paths['selfcheck']}")
 
         out, _ = child.communicate(timeout=300)
@@ -2418,7 +2437,7 @@ def anchor_match_phase(weights, tables) -> dict:
     # are cut, the match evaluates the final boards with the candidate once
     want = {"score_scan": 0, "score_backup": 2 * n_plies * ANCHOR_MATCH_SIMS,
             "fused_trunk": n_plies * (ANCHOR_MATCH_SIMS + 1) + (1 if res.truncated else 0),
-            "fused_trunk_cluster": 0}
+            "fused_trunk_cluster": 0, "fused_trunk_wide": 0}
     if launches != want:
         raise SystemExit(f"anchor match: launches {launches}, expected {want}")
     board, stm = torch.cat([b for b, _ in plies]), torch.cat([t for _, t in plies])
@@ -2560,17 +2579,23 @@ def last_modules_phase(net, weights, tables, generation) -> dict:
 
 
 # phase 24: the trunk kernel at the widths and boards the kernel is built
-# for only through padding or the cluster entry
+# for only through padding, the cluster entry or the wide entry
 TRUNK_SHAPES = {  # tag -> (filters, blocks, batch, rows, cols)
     "C=16 15x15": (16, 2, 64, 15, 15),  # the dry run's round network, padded to 64
     "C=96 15x15": (96, 6, 64, 15, 15),  # padded to 128
     "C=128 16x16": (128, 8, 32, 16, 16),  # the cluster entry
     "C=128 20x20": (128, 8, 32, 20, 20),
+    "C=256 15x15": (256, 8, 32, 15, 15),  # the wide entry, 2 CTAs a board
+    "C=256 20x20": (256, 8, 32, 20, 20),  # 5 CTAs a board
+    "C=192 15x15": (192, 6, 32, 15, 15),  # padded to 256
+    "C=136 16x16": (136, 2, 32, 16, 16),  # padded to 256, 3 CTAs a board
 }
 SHAPES_SEED = 0  # torch.Generator seed of each network's weights
-SEARCH20_BATCH = 64  # boards of the 20x20 8x128 search
+SEARCH20_BATCH = 64  # boards of the 20x20 searches (8x128, 8x256)
 SEARCH20_SIMS = 1  # the counted search: one simulation step, cold
 SEARCH20_TIMED = 5  # steps timed after it, one warm-up step first
+WIDE256_SIMS = 50  # the 8x256 search at the bench configuration (B = 1280, 15x15)
+VECTORIZED_BOARDS = 64  # seeded boards of the vectorized functions' card check
 
 
 def random_boards(batch: int, rows: int, cols: int, seed: int = 0):
@@ -2586,37 +2611,21 @@ def random_boards(batch: int, rows: int, cols: int, seed: int = 0):
     return boards
 
 
-def trunk_shapes_phase(tables) -> dict:
-    """24. The trunk kernel at each of `TRUNK_SHAPES` (a seeded
-    `init_random_` network built for the board), through `trunk_phase`:
-    held within TRUNK_LIMITS of the plain trunk, block by block within
-    BLOCK_LIMITS, a left-out bias rejected, timed beside the plain and
-    library trunks and the bound, with the entry's occupancy; then one
-    simulation step of the 8x128 network on 20x20 boards, in which every
-    trunk launch is the cluster entry's, and warm steps on from its tree,
-    each timed."""
+def search20_phase(weights, tables, tag: str, trunk_entry: str) -> tuple[dict, list[float]]:
+    """One counted simulation step of `weights` on `SEARCH20_BATCH` seeded
+    20x20 boards (`search_phase`, every trunk launch `trunk_entry`'s), then
+    `SEARCH20_TIMED` warm steps on from its tree, each timed.  Returns the
+    launches and the warm steps' ms."""
     import torch
-    from alphagomoku_tpu_torch.models.networks import create_network, init_random_
-    from alphagomoku_tpu_torch.ops import convnext_fused as CF
     from alphagomoku_tpu_torch.game.types import CROSS
+    from alphagomoku_tpu_torch.ops import convnext_fused as CF
     from alphagomoku_tpu_torch.search import mcts
 
-    t0 = time.perf_counter()
-    out, nets = {}, {}
-    for tag, (filters, blocks, batch, rows, cols) in TRUNK_SHAPES.items():
-        net = init_random_(create_network("ConvNextPVQMraw", blocks, filters, rows, cols),
-                           torch.Generator().manual_seed(SHAPES_SEED)).to("cuda").eval()
-        boards = torch.from_numpy(random_boards(batch, rows, cols)).to("cuda")
-        stm = torch.full((batch,), CROSS, dtype=torch.int8, device="cuda")
-        out[tag] = trunk_phase(net, root_planes(tables, boards, stm), f"fused_trunk {tag}")
-        out[tag]["plan"] = CF.trunk_plan(filters, rows, cols)._asdict()
-        nets[tag] = net
-    weights = CF.pack_weights(nets["C=128 20x20"])
     boards = torch.from_numpy(random_boards(SEARCH20_BATCH, 20, 20, seed=1)).to("cuda")
     stm = torch.full((SEARCH20_BATCH,), CROSS, dtype=torch.int8, device="cuda")
     cfg = mcts.MCTSConfig(max_nodes=16, max_edges=32, max_depth=16)
-    state, launches = search_phase(weights, tables, cfg, boards, stm, SEARCH20_SIMS,
-                                   "search 8x128 20x20", cluster_trunk=True)
+    state, launches = search_phase(weights, tables, cfg, boards, stm, SEARCH20_SIMS, tag,
+                                   trunk_entry=trunk_entry)
     # the step's time: warm steps on from that search's tree (1 + 1 +
     # SEARCH20_TIMED simulations stay within max_nodes)
     simulate = mcts.make_simulate_fn(CF.fused_apply, tables, cfg)
@@ -2629,13 +2638,129 @@ def trunk_shapes_phase(tables) -> dict:
             torch.cuda.synchronize()
             if i:
                 step_ms.append((time.perf_counter() - t1) * 1e3)
-    print(f"search 8x128 20x20: {SEARCH20_TIMED} warm simulation steps at batch "
-          f"{SEARCH20_BATCH} after one warm-up step: median {statistics.median(step_ms):.3f} ms, "
-          f"min {min(step_ms):.3f} ms, max {max(step_ms):.3f} ms (the line above times one cold "
-          f"step with the roots' evaluation)", flush=True)
+    print(f"{tag}: {SEARCH20_TIMED} warm simulation steps at batch {SEARCH20_BATCH} after one "
+          f"warm-up step: median {statistics.median(step_ms):.3f} ms, min {min(step_ms):.3f} "
+          f"ms, max {max(step_ms):.3f} ms (the line above times one cold step with the roots' "
+          "evaluation)", flush=True)
+    return launches, step_ms
+
+
+def engine_8x256_phase() -> dict:
+    """The launcher's engine with a seeded 8x256 network
+    (`ProgramManager(blocks=8, filters=256)`): START 20 and one TURN, its
+    search cut to one chunk of `ENGINE_MAX_NODE` sims at B = 1; the answer
+    on an empty cell, every trunk launch the wide entry's."""
+    import io
+
+    from alphagomoku_tpu_torch.engine.manager import ProgramManager
+
+    mgr = ProgramManager(protocol="extended", blocks=8, filters=256, device="cuda",
+                         instream=None, outstream=io.StringIO())
+    _zero_counts()
+    with _EngineLog() as log:
+        out = _drive(mgr, "START 20", f"INFO max_node {ENGINE_MAX_NODE}", "TURN 10,10")
+    launches = _counts()
+    answers = _answers(out)
+    if len(log.searches) != 1 or len(answers) != 1:
+        raise SystemExit(f"engine 8x256: {len(log.searches)} searches, answered {out}")
+    s = log.searches[0]
+    steps = s["timings"].get("steps", 0)
+    want = {"score_scan": 0, "score_backup": steps, "fused_trunk": steps + 1,
+            "fused_trunk_cluster": 0, "fused_trunk_wide": steps + 1}
+    if steps < 1 or launches != want:
+        raise SystemExit(f"engine 8x256: {steps} steps, launches {launches} (expected {want})")
+    row, col = map(int, answers[0].split(","))
+    if s["board"][row, col] != 0 or (row, col) == (10, 10):
+        raise SystemExit(f"engine 8x256: answered the occupied cell {answers[0]}")
+    step_ms = 1e3 * s["timings"]["simulate"] / steps
+    print(f"engine 8x256 20x20 (seeded): answer {answers[0]} in {s['seconds']:.2f} s, "
+          f"{steps} steps, {step_ms:.2f} ms per step, launches {launches}", flush=True)
+    return dict(launches=launches, seconds=s["seconds"], step_ms=step_ms, steps=steps)
+
+
+def vectorized_on_card(tables) -> None:
+    """`vectorized.windows_at_many` and `pattern_types` (int64 windows) on
+    the card, bit-equal to the same calls on the CPU (which
+    tests/test_torch_vectorized_rest.py holds against the JAX package)."""
+    import numpy as np
+    import torch
+    from alphagomoku_tpu_torch.game import vectorized as V
+
+    rng = np.random.default_rng(3)
+    board = torch.from_numpy(rng.choice(np.array([0, 1, 2], np.int8),
+                                        size=(VECTORIZED_BOARDS, H, W), p=[0.5, 0.25, 0.25]))
+    rows = torch.from_numpy(rng.integers(-1, H + 1, size=(VECTORIZED_BOARDS, 32)))
+    cols = torch.from_numpy(rng.integers(0, W, size=(VECTORIZED_BOARDS, 32)))
+    circle = torch.from_numpy(rng.random((VECTORIZED_BOARDS, 1)) < 0.5)
+    cpu_w = V.windows_at_many(board, rows, cols)
+    cpu_p = V.pattern_types(tables, cpu_w, circle)
+    card_w = V.windows_at_many(board.cuda(), rows.cuda(), cols.cuda())
+    card_p = V.pattern_types(tables, card_w, circle.cuda())
+    if not (torch.equal(card_w.cpu(), cpu_w) and torch.equal(card_p.cpu(), cpu_p)):
+        raise SystemExit("vectorized: windows_at_many or pattern_types differ on the card")
+    print(f"vectorized: windows_at_many and pattern_types on the card bit-equal to the CPU on "
+          f"{VECTORIZED_BOARDS} boards x 32 queries ({int((cpu_p > 0).sum())} nonzero "
+          "pattern types)", flush=True)
+
+
+def trunk_shapes_phase(tables, boards, stm) -> dict:
+    """24. The trunk kernel at each of `TRUNK_SHAPES` (a seeded
+    `init_random_` network built for the board), through `trunk_phase`:
+    held within TRUNK_LIMITS of the plain trunk, block by block within
+    BLOCK_LIMITS, a left-out bias rejected, timed beside the plain and
+    library trunks and the bound, with the entry's occupancy; then one
+    simulation step of the 8x128 network on 20x20 boards, in which every
+    trunk launch is the cluster entry's, and warm steps on from its tree,
+    each timed; the same for the 8x256 network, on the wide entry; the
+    seeded 8x256 network at the bench configuration (`boards`, `stm`):
+    its trunk held and timed at B = 1280, and `WIDE256_SIMS` sims of its
+    search, every trunk launch the wide entry's, and its steps traced; the
+    launcher's engine at 8x256; the two vectorized functions on the
+    card."""
+    import torch
+    from alphagomoku_tpu_torch.game.types import CROSS
+    from alphagomoku_tpu_torch.models.networks import create_network, init_random_
+    from alphagomoku_tpu_torch.ops import convnext_fused as CF
+    from alphagomoku_tpu_torch.search import mcts
+
+    t0 = time.perf_counter()
+    out, nets = {}, {}
+    for tag, (filters, blocks, batch, rows, cols) in TRUNK_SHAPES.items():
+        net = init_random_(create_network("ConvNextPVQMraw", blocks, filters, rows, cols),
+                           torch.Generator().manual_seed(SHAPES_SEED)).to("cuda").eval()
+        b = torch.from_numpy(random_boards(batch, rows, cols)).to("cuda")
+        s = torch.full((batch,), CROSS, dtype=torch.int8, device="cuda")
+        out[tag] = trunk_phase(net, root_planes(tables, b, s), f"fused_trunk {tag}")
+        out[tag]["plan"] = CF.trunk_plan(filters, rows, cols)._asdict()
+        nets[tag] = net
+    launches, step_ms = search20_phase(CF.pack_weights(nets["C=128 20x20"]), tables,
+                                       "search 8x128 20x20", "fused_trunk_cluster")
+    launches256_20, step256_ms = search20_phase(CF.pack_weights(nets["C=256 20x20"]), tables,
+                                                "search 8x256 20x20", "fused_trunk_wide")
+    del nets
+
+    # the 8x256 network at the bench configuration
+    net = init_random_(create_network("ConvNextPVQMraw", blocks=8, filters=256),
+                       torch.Generator().manual_seed(SHAPES_SEED)).to("cuda").eval()
+    weights = CF.pack_weights(net)
+    trunk256 = trunk_phase(net, root_planes(tables, boards, stm), "fused_trunk 256",
+                           plain_reps=1)
+    cfg = mcts.MCTSConfig(max_nodes=808, max_edges=32, max_depth=16)
+    state, launches256 = search_phase(weights, tables, cfg, boards, stm, WIDE256_SIMS,
+                                      "search 8x256", trunk_entry="fused_trunk_wide")
+    simulate = mcts.make_simulate_fn(CF.fused_apply, tables, cfg)
+    profile256 = profile_steps(simulate, weights, state, PROFILE_STEPS)
+    print(profile256.replace("profile:", "profile 8x256:"), flush=True)
+    del state, simulate, weights, net
+
+    engine256 = engine_8x256_phase()
+    vectorized_on_card(tables)
     seconds = time.perf_counter() - t0
     print(f"phase 24: {seconds:.1f} s by its own clock", flush=True)
-    return {"shapes": out, "launches": launches, "step_ms": step_ms, "seconds": seconds}
+    return {"shapes": out, "launches": launches, "step_ms": step_ms,
+            "launches_8x256_20x20": launches256_20, "step_ms_8x256_20x20": step256_ms,
+            "trunk256": trunk256, "launches_8x256": launches256,
+            "engine_8x256": engine256, "seconds": seconds}
 
 
 DRYRUN_N = 2  # processes of tools/dryrun_multichip.py on the one card (tp = 2)
@@ -2867,10 +2992,14 @@ def main() -> int:
         "profile:", "profile 8x128:"), flush=True)
     del state, simulate
 
-    # 24. the trunk at padded widths and through the cluster entry, and one
-    # step of the 8x128 network on 20x20 boards
-    shapes = trunk_shapes_phase(tables)
+    # 24. the trunk at padded widths and through the cluster and wide
+    # entries, one step of the 8x128 and 8x256 networks on 20x20 boards,
+    # the 8x256 search at the bench configuration and the 8x256 engine
+    shapes = trunk_shapes_phase(tables, boards, stm)
     paths["search_20x20"] = shapes["launches"]
+    paths["search_8x256_20x20"] = shapes["launches_8x256_20x20"]
+    paths["8x256"] = shapes["launches_8x256"]
+    paths["engine_8x256"] = shapes["engine_8x256"]["launches"]
 
     # 12. the strength search: network_23 and the VCT leaf solver (bench.py's
     # strength configuration)
@@ -2965,6 +3094,15 @@ def main() -> int:
         source="alphagomoku_tpu_torch/csrc/convnext_trunk.cu",
         replaces="alphagomoku_tpu/ops/convnext_fused.py:92", shape="C=128 L=8 20x20",
         **cluster, boards={"16x16": shapes["shapes"]["C=128 16x16"], "20x20": cluster}))
+    kernels.append(dict(
+        name="fused_trunk_wide", route="cuda",
+        source="alphagomoku_tpu_torch/csrc/convnext_trunk.cu",
+        replaces="alphagomoku_tpu/ops/convnext_fused.py:92", shape="C=256 L=8 B=1280 15x15",
+        **shapes["trunk256"], shapes={t: shapes["shapes"][t] for t in
+                                      ("C=256 15x15", "C=256 20x20", "C=192 15x15",
+                                       "C=136 16x16")},
+        engine_8x256=shapes["engine_8x256"],
+        step_ms_8x256_20x20=shapes["step_ms_8x256_20x20"]))
     top = "K=81 D=16"  # the wide entries' headline shape: the selfcheck's K
     for name in ("score_scan", "score_backup"):
         kernels.append(dict(
@@ -2984,13 +3122,24 @@ def main() -> int:
     wide_paths = ("selfcheck", "leaf_batch_k81")
     main_path = {"score_scan": "leaf_batch", "score_backup": "flagship",
                  "fused_trunk": "flagship", "score_scan_wide": "leaf_batch_k81",
-                 "score_backup_wide": "selfcheck", "fused_trunk_cluster": "search_20x20"}
+                 "score_backup_wide": "selfcheck", "fused_trunk_cluster": "search_20x20",
+                 "fused_trunk_wide": "8x256"}
     for k in kernels:
-        wrapper = k["name"].removesuffix("_wide")
-        wide_kernel = wrapper != k["name"]
+        # the K > 32 scan entries count with their wrappers; the trunk's
+        # cluster and wide entries have counts of their own
+        wide_kernel = k["name"] in ("score_scan_wide", "score_backup_wide")
+        wrapper = k["name"].removesuffix("_wide") if wide_kernel else k["name"]
         k["launches"] = paths[main_path[k["name"]]][wrapper]
         k["launches_by_path"] = {p: n[wrapper] for p, n in paths.items()
                                  if (p in wide_paths) == wide_kernel}
+    # the wide entry runs on this slice's paths and no other
+    wide_elsewhere = {p: n["fused_trunk_wide"] for p, n in paths.items()
+                      if p not in ("search_8x256_20x20", "8x256", "engine_8x256")
+                      and n["fused_trunk_wide"]}
+    if wide_elsewhere or not all(paths[p]["fused_trunk_wide"] for p in
+                                 ("search_8x256_20x20", "8x256", "engine_8x256")):
+        raise SystemExit(f"fused_trunk_wide: launched off its paths or not on them: "
+                         f"{ {p: n['fused_trunk_wide'] for p, n in paths.items()} }")
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -182,7 +182,7 @@ def test_unported_config_raises():
     assert not torch.equal(state.noisy_prior, state.tree.edge_prior[:, 0].float())
     from alphagomoku_tpu_torch.ops import convnext_fused as CF
 
-    x = torch.zeros((1, 15, 15, 256), dtype=torch.bfloat16)
+    x = torch.zeros((1, 15, 15, 257), dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         CF.fused_trunk(x.to("meta"), None)
 

@@ -1,19 +1,21 @@
-"""The trunk kernel's shapes: every convnext width up to 128 and every board
+"""The trunk kernel's shapes: every convnext width up to 256 and every board
 up to 20x20 (`ops/convnext_fused.py` `trunk_plan`).
 
 - On the CPU: the plain trunk on inputs and weights padded with zero
   channels to the kernel's width (`pad_trunk`), cut back to C, equals the
   plain trunk at C (as values: a sum of -0 terms may come out +0), for
-  C = 8, 16, 32 and 96 on 9x9 at L = 2; the padded fused forward of the
-  2x32 network meets the JAX golden `forward_2x32` (flax `net.apply` and
-  the Pallas fused forward) under `HEAD_LIMITS`; `trunk_plan` picks, for
-  every C <= 128 and every board up to 20x20, the width, the entry and a
-  shared memory within the card's opt-in limit per CTA, and C above 128
-  raises naming its ROADMAP entry.
-- On the card (`cuda`): each padded width and the cluster entry (C = 128
-  on 16x16 to 20x20) against the plain trunk within TRUNK_LIMITS (all
-  blocks) and BLOCK_LIMITS (each block alone), a left-out bias rejected,
-  and what the cluster entry gets from the card.
+  C = 8, 16, 32 and 96 on 9x9 at L = 2 and C = 136 and 200 at L = 1; the
+  padded fused forward of the 2x32 and 1x136 networks meets the JAX
+  goldens `forward_2x32` and `forward_1x136` (flax `net.apply` and the
+  Pallas fused forward) under `HEAD_LIMITS`; `trunk_plan` picks, for every
+  C <= 256 and every board up to 20x20, the width, the entry, the CTAs a
+  board and a shared memory within the card's opt-in limit per CTA, and C
+  above 256 raises naming its ROADMAP entry.
+- On the card (`cuda`): each padded width, the cluster entry (C = 128 on
+  16x16 to 20x20) and the wide entry (C = 129 to 256) against the plain
+  trunk within TRUNK_LIMITS (all blocks) and BLOCK_LIMITS (each block
+  alone), a left-out bias rejected, and what the cluster and wide entries
+  get from the card.
 """
 
 import numpy as np
@@ -51,9 +53,10 @@ def _trunk_input(device, filters, blocks, batch, rows, cols, seed):
     return x, CF.pack_trunk_weights(net)
 
 
-@pytest.mark.parametrize("filters", [8, 16, 32, 96])
+@pytest.mark.parametrize("filters", [8, 16, 32, 96, 136, 200])
 def test_padded_plain_trunk_equals_unpadded(filters):
-    x, tw = _trunk_input("cpu", filters, 2, 2, 9, 9, seed=filters)
+    blocks = 2 if filters <= 128 else 1
+    x, tw = _trunk_input("cpu", filters, blocks, 2, 9, 9, seed=filters)
     assert tw.dw.shape[-1] == filters  # the CPU pack is not padded
     width = CF.kernel_width(filters)
     xp, wp = CF.pad_trunk(x, tw, width)
@@ -67,21 +70,21 @@ def test_padded_plain_trunk_equals_unpadded(filters):
     assert bool((CF.fused_trunk_plain(x, wp).float() == ref.float()).all())
 
 
-def test_padded_forward_meets_the_2x32_golden():
-    """The fused forward with the 2x32 trunk padded to 64 channels: equal to
-    the unpadded one, within HEAD_LIMITS of the Pallas fused forward (it
-    comes out bit-equal), and within tests/test_ops.py's 5% rule of flax's
+def _padded_forward_meets_golden(name: str, filters: int, width: int):
+    """The fused forward of the golden's network with its trunk padded to
+    `width` channels: equal to the unpadded one, within HEAD_LIMITS of the
+    Pallas fused forward, and within tests/test_ops.py's 5% rule of flax's
     `net.apply` (which no bf16 backend meets HEAD_LIMITS of: PERF.md §6,
     ROADMAP.md §3)."""
     from tests.test_torch_network import _heads, _unflatten, assert_close
 
-    golden = torch_golden.load("forward_2x32")
+    golden = torch_golden.load(name)
     variables = _unflatten({k[4:]: v for k, v in golden.items() if k.startswith("var/")})
     net = network_from_flax(variables)
-    assert net.cfg.filters == 32
+    assert net.cfg.filters == filters
     planes = torch.from_numpy(golden["planes"])
-    padded = CF.FusedWeights(net, CF.pad_trunk_weights(CF.pack_trunk_weights(net), 64))
-    assert padded.trunk.w1.shape[-1] == 64
+    padded = CF.FusedWeights(net, CF.pad_trunk_weights(CF.pack_trunk_weights(net), width))
+    assert padded.trunk.w1.shape[-1] == width == CF.kernel_width(filters)
     out = CF.fused_apply(padded, planes, trunk=CF.fused_trunk_plain)
     plain = CF.fused_apply(CF.pack_weights(net), planes, trunk=CF.fused_trunk_plain)
     for name in HEADS:
@@ -91,6 +94,28 @@ def test_padded_forward_meets_the_2x32_golden():
         assert held["ok"], (name, held)
     assert_close(_heads(golden, "ref"), out._replace(**{n: getattr(out, n).numpy()
                                                         for n in HEADS}), "padded vs net.apply")
+
+
+def test_padded_forward_meets_the_2x32_golden():
+    """The 2x32 trunk padded to 64 channels (the Pallas forward comes out
+    bit-equal)."""
+    _padded_forward_meets_golden("forward_2x32", 32, 64)
+
+
+def test_padded_forward_meets_the_1x136_golden():
+    """A 1x136 network, a width the wide entry runs on zero channels padded
+    to 256."""
+    _padded_forward_meets_golden("forward_1x136", 136, 256)
+
+
+def jax_forward_1x136() -> dict:
+    """The JAX side of the `forward_1x136` golden: a flax-initialised 1x136
+    ConvNextPVQMraw through `net.apply` and the Pallas fused forward in
+    interpret mode, on 4 seeded boards."""
+    from tests.test_torch_network import _jax_init, jax_forward
+
+    net_jax, variables = _jax_init(1, 136)
+    return jax_forward(net_jax, variables, batch=4, seed=3, block_batch=4, with_variables=True)
 
 
 def test_trunk_plan_takes_every_width_and_board():
@@ -124,8 +149,41 @@ def test_trunk_plan_takes_every_width_and_board():
     assert CF.trunk_plan(16, 15, 15) == CF.TrunkPlan("convnext_trunk_kernel", 64, 1, 95904)
 
 
-@pytest.mark.parametrize("filters", [129, 256])
-def test_trunk_above_128_raises_naming_its_roadmap_entry(filters):
+def test_wide_trunk_plan_takes_every_width_and_board():
+    """Every C in 129..256 on every board up to 20x20: width 256 on the wide
+    entry, the fewest CTAs a board (at most 8) whose CTAs each hold at most
+    128 cells and fit the card's opt-in limit, each CTA at least one row."""
+    plans = {(h, w): CF.trunk_plan(256, h, w) for h in range(1, 21) for w in range(1, 21)}
+    for (h, w), plan in plans.items():
+        assert plan.entry == "convnext_trunk_wide_kernel" and plan.width == 256, (h, w, plan)
+        n = plan.ctas
+        assert 1 <= n <= CF.WIDE_MAX_CTAS and n <= h, (h, w, plan)
+        rows = CF._wide_rows(h, n)
+        assert min(b - a for a, b in zip(rows, rows[1:])) >= 1
+        assert -(-h // n) * w <= CF.WIDE_MAX_CELLS
+        assert plan.smem_bytes == CF._wide_cta_bytes(256, h, w, n) <= CF.SM90_SMEM_OPTIN
+        # the fewest CTAs: one fewer does not fit
+        if n > 1:
+            assert (-(-h // (n - 1)) * w > CF.WIDE_MAX_CELLS
+                    or CF._wide_cta_bytes(256, h, w, n - 1) > CF.SM90_SMEM_OPTIN), (h, w, plan)
+    for c in range(129, 257):
+        assert CF.kernel_width(c) == 256
+        for h in (1, 7, 15, 16, 19, 20):
+            for w in (1, 9, 15, 20):
+                assert CF.trunk_plan(c, h, w) == plans[(h, w)]
+    assert max(p.ctas for p in plans.values()) == 5
+    # the sizes the kernel's own Wide<256>::bytes() gives
+    assert CF.trunk_plan(256, 15, 15) == CF.TrunkPlan("convnext_trunk_wide_kernel", 256, 2,
+                                                      226768)
+    assert CF.trunk_plan(256, 20, 20) == CF.TrunkPlan("convnext_trunk_wide_kernel", 256, 5,
+                                                      224128)
+    assert CF.trunk_plan(136, 16, 16) == CF.TrunkPlan("convnext_trunk_wide_kernel", 256, 3,
+                                                      219904)
+    assert CF.trunk_smem_bytes(200, 9, 9) == 161824  # one CTA a board
+
+
+@pytest.mark.parametrize("filters", [257, 512])
+def test_trunk_above_256_raises_naming_its_roadmap_entry(filters):
     with pytest.raises(NotImplementedError, match="ROADMAP.md §2 item 3"):
         CF.trunk_plan(filters, 15, 15)
     x = torch.zeros((1, 15, 15, filters), dtype=torch.bfloat16, device="meta")
@@ -143,6 +201,15 @@ CARD_SHAPES = {
     "c128_19x20": (128, 2, 5, 19, 20),  # halves of 10 and 9 rows
     "c128_17x15": (128, 2, 5, 17, 15),  # 15 wide: the fixed-width depthwise
     "c100_13x20": (100, 2, 3, 13, 20),  # the fewest rows that take the cluster
+    # the wide entry
+    "c256_15x15": (256, 8, 8, 15, 15),  # 2 CTAs a board
+    "c256_20x20": (256, 8, 8, 20, 20),  # 5 CTAs a board
+    "c136_16x16": (136, 2, 5, 16, 16),  # padded to 256, 3 CTAs a board
+    "c200_9x9": (200, 2, 4, 9, 9),  # padded to 256, one CTA a board
+    "c256_7x19": (256, 2, 3, 7, 19),  # 2 CTAs of 3 and 4 rows, 19 wide
+    "c256_17x17": (256, 2, 3, 17, 17),  # 4 CTAs a board
+    "c256_1x1": (256, 2, 3, 1, 1),  # the smallest board, one CTA
+    "c256_20x1": (256, 2, 3, 20, 1),  # one column, one CTA
 }
 
 
@@ -155,8 +222,11 @@ def test_trunk_kernel_shapes_on_card(cuda_device, shape):
     x, tw = _trunk_input(cuda_device, filters, blocks, batch, rows, cols, seed=11)
     assert tw.dw.shape[-1] == CF.kernel_width(filters)
     before = CF.fused_trunk.launches
+    wide = CF.fused_trunk.wide_launches
     out = CF.fused_trunk(x, tw)
     assert CF.fused_trunk.launches == before + 1 and out.shape == x.shape
+    on_wide = CF.trunk_plan(filters, rows, cols).entry == "convnext_trunk_wide_kernel"
+    assert CF.fused_trunk.wide_launches == wide + on_wide
     held = agreement(CF.fused_trunk_plain(x, tw), out, **CF.TRUNK_LIMITS)
     assert held["ok"], held
     for l in range(blocks):
@@ -185,3 +255,26 @@ def test_cluster_occupancy_on_card(cuda_device, board):
     assert occ["entry"] == "convnext_trunk_cluster_kernel", occ
     assert occ["ctas_per_sm"] == 1 and occ["clusters"] >= 1, occ
     assert occ["smem_bytes"] <= CF.SM90_SMEM_OPTIN, occ
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", ["b2", "bn_t"])
+def test_wide_check_rejects_a_kernel_without_a_bias_on_card(cuda_device, bias):
+    x, tw = _trunk_input(cuda_device, 256, 8, 8, 15, 15, seed=11)
+    t = getattr(tw, bias).clone()
+    t[-1] = 0
+    before = CF.fused_trunk.wide_launches
+    out = CF.fused_trunk(x, tw._replace(**{bias: t}))
+    assert CF.fused_trunk.wide_launches == before + 1
+    held = agreement(CF.fused_trunk_plain(x, tw), out, **CF.TRUNK_LIMITS)
+    assert not held["ok"], held
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("board", [9, 15, 20])
+def test_wide_occupancy_on_card(cuda_device, board):
+    plan = CF.trunk_plan(256, board, board)
+    occ = CF.trunk_occupancy(256, board, board)
+    assert occ["entry"] == "convnext_trunk_wide_kernel" and occ["ctas"] == plan.ctas, occ
+    assert occ["ctas_per_sm"] == 1 and occ["clusters"] >= 1, occ
+    assert occ["smem_bytes"] == plan.smem_bytes <= CF.SM90_SMEM_OPTIN, occ

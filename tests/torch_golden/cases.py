@@ -25,6 +25,7 @@ from tests import test_torch_reuse as reuse_tests
 from tests import test_torch_selfplay as selfplay_tests
 from tests import test_torch_score_scan as score_scan_tests
 from tests import test_torch_threats as threat_tests
+from tests import test_torch_trunk_shapes as trunk_shapes_tests
 from tests import test_torch_train as train_tests
 from tests import test_torch_vct as vct_tests
 from tests import test_torch_vcf as vcf_tests
@@ -43,6 +44,7 @@ CASES = {
     "flagship_search": flagship_tests.jax_flagship_search,
     "forward_2x32": network_tests.jax_forward_2x32,
     "forward_6x64": network_tests.jax_forward_6x64,
+    "forward_1x136": trunk_shapes_tests.jax_forward_1x136,
     "score_scan_interpret": score_scan_tests.jax_score_scan_interpret,
     "defensive_tables": threat_tests.jax_defensive_tables,
     "defensive_moves": threat_tests.jax_defensive_moves,
