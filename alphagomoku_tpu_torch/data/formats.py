@@ -20,9 +20,10 @@ Quantizers (all little-endian):
   score_format  = LowFP<1,3,2,-8>    (6-bit eval inside score_to_int8)
 
 A copy of the reference package's `data/formats.py` (numpy, struct and
-zlib), its Python writer and parser only: files are byte-identical to the
-reference package's.  The reference package's optional ctypes codec
-(`native/libagdata.so`) writes the same bytes, so it is not carried over.
+zlib): files are byte-identical to the reference package's.  Of its
+optional ctypes codec (`native/libagdata.so`, built from `native/agdata.cpp`
+by `make -C native`) the port keeps the reader, `parse_game_native`, with a
+loader of its own; the writer and `load_buffer` stay Python.
 """
 
 from __future__ import annotations
@@ -30,8 +31,10 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import struct
 import zlib
+from pathlib import Path
 
 import numpy as np
 
@@ -370,6 +373,95 @@ def parse_game(buf: memoryview, off: int, fmt: int, hw: int) -> tuple[GameData, 
     outcome, rows, cols = struct.unpack_from("<iii", buf, off)
     off += 12
     return GameData(records, moves, outcome, rows, cols), off
+
+
+# the native codec, native/libagdata.so at the repository root, and the
+# ABI it must report: a stale library called through these signatures is
+# undefined behaviour
+NATIVE_LIB = Path(__file__).resolve().parents[2] / "native" / "libagdata.so"
+NATIVE_ABI = 2
+_NATIVE: dict = {}
+
+
+def native_lib(path=None):
+    """The native codec loaded with ctypes (its argument types set), or None
+    where the library is absent or reports another ABI.  Loaded once per
+    path."""
+    import ctypes as c
+
+    path = str(path or NATIVE_LIB)
+    if path in _NATIVE:
+        return _NATIVE[path]
+    lib = None
+    if os.path.exists(path):
+        lib = c.CDLL(path)
+        try:
+            lib.ag_abi_version.restype = c.c_int
+            lib.ag_abi_version.argtypes = []
+            if lib.ag_abi_version() != NATIVE_ABI:
+                lib = None
+        except AttributeError:
+            lib = None
+    if lib is not None:
+        pi32, pf32, pu16 = c.POINTER(c.c_int32), c.POINTER(c.c_float), c.POINTER(c.c_uint16)
+        lib.ag_parse_game.restype = c.c_int64
+        lib.ag_parse_game.argtypes = [
+            c.c_int, c.c_char_p, c.c_int64, c.c_int64, c.c_int, pi32,
+            c.POINTER(pi32), c.POINTER(pf32), c.POINTER(pf32), c.POINTER(pf32),
+            c.POINTER(pu16), c.POINTER(pu16), c.POINTER(pu16), c.POINTER(pu16),
+            c.POINTER(pu16), pi32, pi32, pi32, pi32,
+        ]
+        lib.ag_free.restype = None
+        lib.ag_free.argtypes = [c.c_void_p]
+    _NATIVE[path] = lib
+    return lib
+
+
+def parse_game_native(buf, off: int, fmt: int, hw: int, path=None):
+    """`parse_game` through the native codec (`native_lib(path)`): (GameData,
+    new_off), or None where the library is unavailable."""
+    lib = native_lib(path)
+    if lib is None:
+        return None
+    import ctypes as c
+
+    raw = bytes(buf)
+    n_rec, n_mv, outc, rows_o, cols_o = (c.c_int32() for _ in range(5))
+    pi32, pf32, pu16 = c.POINTER(c.c_int32), c.POINTER(c.c_float), c.POINTER(c.c_uint16)
+    visit, policy, win, draw = pi32(), pf32(), pf32(), pf32()
+    scores, minimax, move_no, flags, moves = pu16(), pu16(), pu16(), pu16(), pu16()
+    new_off = lib.ag_parse_game(
+        fmt, raw, len(raw), off, hw, c.byref(n_rec), c.byref(visit), c.byref(policy),
+        c.byref(win), c.byref(draw), c.byref(scores), c.byref(minimax), c.byref(move_no),
+        c.byref(flags), c.byref(moves), c.byref(n_mv), c.byref(outc), c.byref(rows_o),
+        c.byref(cols_o),
+    )
+    if new_off < 0:
+        raise ValueError(f"native parse_game failed: {new_off}")
+    n = n_rec.value
+
+    def arr(p, count, dtype):
+        return np.ctypeslib.as_array(p, shape=(count,)).astype(dtype, copy=True)
+
+    per_cell = [arr(p, n * hw, dt).reshape(n, hw) for p, dt in (
+        (visit, np.int32), (policy, np.float32), (win, np.float32), (draw, np.float32),
+        (scores, np.uint16))]
+    minimax_a, move_no_a, flags_a = (arr(p, n, np.uint16) for p in (minimax, move_no, flags))
+    moves_a = arr(moves, max(1, n_mv.value), np.uint16)[: n_mv.value]
+    for p in (visit, policy, win, draw, scores, minimax, move_no, flags, moves):
+        lib.ag_free(p)
+    records = [
+        SearchRecord(
+            visit_count=per_cell[0][i], policy_prior=per_cell[1][i], win_rate=per_cell[2][i],
+            draw_rate=per_cell[3][i], action_scores=per_cell[4][i],
+            minimax_score=int(minimax_a[i]), move_number=int(move_no_a[i]),
+            flags=int(flags_a[i]),
+        )
+        for i in range(n)
+    ]
+    game = GameData(records, [int(m) for m in moves_a], int(outc.value), int(rows_o.value),
+                    int(cols_o.value))
+    return game, int(new_off)
 
 
 def save_buffer(

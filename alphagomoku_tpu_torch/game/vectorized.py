@@ -370,6 +370,12 @@ def _resolve(tables, board, wins, rq, cq, ov, depth, windows, pts):
     return f_high, f_low != f_high
 
 
+def narrow_down(windows: torch.Tensor) -> torch.Tensor:
+    """22-bit window -> 20-bit table key (drop the empty-center bits), on
+    the windows' device and in their integer type."""
+    return (windows & 1023) | ((windows & 4190208) >> 2)
+
+
 def pattern_types(tables: RuleTables, windows: torch.Tensor, sign_is_circle) -> torch.Tensor:
     """PatternType per direction of packed windows [..., 4] (int32), for the
     side `sign_is_circle` (a bool broadcastable to `windows.shape[:-1]`):

@@ -5,11 +5,11 @@
 engine take (`net_apply(variables, planes) -> NetOutput`):
 
 - the convnext trunk: `ops.convnext_fused.fused_apply` on a
-  `pack_weights` snapshot, the trunk kernel on the card at every width up
-  to 256 and every board up to 20x20 (`convnext_fused.trunk_plan`: widths
-  between built ones on zero channels padded to the next, C = 128 above
-  252 cells on the cluster entry, 129 to 256 on the wide entry); above 256
-  filters it raises NotImplementedError (ROADMAP.md §2 item 3);
+  `pack_weights` snapshot, the trunk kernel on the card at every width
+  and every board up to 20x20 (`convnext_fused.trunk_plan`: widths between
+  built ones on zero channels padded to the next, C = 128 above 252 cells
+  on the cluster entry, 129 to 256 on the wide entry, above 256 the
+  streamed entry at the next multiple of 64);
 - every other trunk: `module_apply` on `networks.snapshot(net)`, the
   module's own `forward`, as the reference package calls `net.apply` for
   them (its engine and trainer run those trunks outside any Pallas

@@ -4,9 +4,10 @@ Port of the reference package's `models/networks.py`: `NetOutput`,
 `ModelConfig`, `AGNetwork` with every trunk (resnet, bottleneck v1-v3,
 convnext, convnext_moe, transformer, unet, unet_transformer), the
 `create_network` registry with every reference architecture name
-(reference: include/alphagomoku/networks/networks.hpp:16-250) and
-`postprocess`.  Inputs and spatial outputs are NHWC at this public
-boundary, as in the reference package; the modules are NCHW inside.
+(reference: include/alphagomoku/networks/networks.hpp:16-250),
+`postprocess` and `value_expectation` (`search/score.py`'s).  Inputs and
+spatial outputs are NHWC at this public boundary, as in the reference
+package; the modules are NCHW inside.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
+from ..search.score import value_expectation  # noqa: F401  (w + d/2 of (win, draw, ...) heads)
 from . import blocks as B
 
 

@@ -23,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("score_scan.cu", "convnext_trunk.cu")
+SOURCES = ("score_scan.cu", "convnext_trunk.cu", "convnext_trunk_streamed.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -40,6 +40,8 @@ SIGNATURES = {
     "ag_convnext_trunk_cluster": [_P] * 13 + [_I, _I, _I, _I, _I, _P],
     "ag_convnext_trunk_wide": [_P] * 13 + [_I, _I, _I, _I, _I, _I, _P],
     "ag_convnext_trunk_occupancy": [_I, _I, _I, _I, _P],
+    "ag_convnext_trunk_streamed": [_P] * 20 + [_I, _I, _I, _I, _I, _P],
+    "ag_convnext_trunk_streamed_occupancy": [_I, _I, _I, _P],
 }
 
 

@@ -1,16 +1,17 @@
-"""Fused ConvNext trunk: the whole block stack as one CUDA kernel, and the
+"""Fused ConvNext trunk: the whole block stack as CUDA kernels, and the
 network forward that runs it.
 
-`fused_trunk` launches `csrc/convnext_trunk.cu` (the port of the Pallas
-kernel `alphagomoku_tpu/ops/convnext_fused.py:_trunk_kernel`) for CUDA
-tensors and runs `fused_trunk_plain` for CPU tensors.  Both keep the Pallas
-body's numerics: bf16 storage, f32 accumulation in the depthwise taps and
-the products, BatchNorm folded to a per-channel scale and shift (inference
+`fused_trunk` launches `csrc/convnext_trunk.cu` or, above 256 filters,
+`csrc/convnext_trunk_streamed.cu` (the ports of the Pallas kernel
+`alphagomoku_tpu/ops/convnext_fused.py:_trunk_kernel`) for CUDA tensors
+and runs `fused_trunk_plain` for CPU tensors.  Both keep the Pallas body's
+numerics: bf16 storage, f32 accumulation in the depthwise taps and the
+products, BatchNorm folded to a per-channel scale and shift (inference
 only), and bf16 casts at the same points.
 
-The kernel is built for the widths `KERNEL_WIDTHS` (64, 128 and 256);
-like the Pallas kernel, the wrapper takes any C up to 256 and any board up
-to 20x20.  `trunk_plan(C, H, W)` picks the launch by the shape alone:
+The one-launch kernels are built for the widths `KERNEL_WIDTHS` (64, 128
+and 256); like the Pallas kernel, the wrapper takes any C and any board.
+`trunk_plan(C, H, W)` picks the launch by the shape alone:
 
 - C below a built width runs at the next one, `kernel_width(C)`, on
   channels padded with zeros (`pad_trunk`), which is exact: a zero channel
@@ -21,11 +22,14 @@ to 20x20.  `trunk_plan(C, H, W)` picks the launch by the shape alone:
   board instead (`convnext_trunk_cluster_kernel<128>`), each holding half
   of the rows;
 - C = 256 (129 to 256 padded) runs the wide entry
-  (`convnext_trunk_wide_kernel<256>`) on every board: a cluster of 1 to 8
-  CTAs a board, the least whose CTAs fit, each holding a band of rows and
-  streaming w1 and w2 from L2.
-
-C above 256 raises NotImplementedError (ROADMAP.md §2 item 3).
+  (`convnext_trunk_wide_kernel<256>`) on every board up to 20x20: a
+  cluster of 1 to 8 CTAs a board, the least whose CTAs fit, each holding a
+  band of rows and streaming w1 and w2 from L2;
+- C above 256 (padded to a multiple of `STREAMED_TILE`, 64) runs the
+  streamed entry (`convnext_trunk_streamed`) on every board: each block as
+  four launches (depthwise, the two products, the SE gate) with the
+  activations in device memory between them, and one last channel scale,
+  4 L + 1 launches a call.
 
 `fused_apply(weights, planes)` is the full ConvNextPVQMraw forward (stem,
 fused trunk, heads) with its weights passed in explicitly as a
@@ -49,10 +53,13 @@ __all__ = [
     "fused_trunk_plain", "FusedWeights", "pack_weights", "fused_apply",
     "trunk_occupancy", "trunk_smem_bytes", "BLOCK_LIMITS", "TRUNK_LIMITS", "HEAD_LIMITS",
     "KERNEL_WIDTHS", "SM90_SMEM_OPTIN", "TrunkPlan", "trunk_plan", "kernel_width",
-    "pad_trunk", "pad_trunk_weights",
+    "pad_trunk", "pad_trunk_weights", "STREAMED_TILE",
 ]
 
 KERNEL_WIDTHS = (64, 128, 256)  # the filter counts csrc/convnext_trunk.cu is built for
+# the channel tile of the streamed entry (csrc/convnext_trunk_streamed.cu):
+# a trunk above 256 filters runs at the next multiple of it
+STREAMED_TILE = 64
 # the largest dynamic shared memory a block may opt into on sm_90, the only
 # architecture the kernel is built for (227 KiB)
 SM90_SMEM_OPTIN = 232448
@@ -120,15 +127,12 @@ def pack_trunk_weights(net: AGNetwork) -> TrunkWeights:
 
 def kernel_width(c: int) -> int:
     """The width the trunk kernel runs a C-filter trunk at: the next built
-    width (`KERNEL_WIDTHS`).  C above 256 raises NotImplementedError."""
+    width (`KERNEL_WIDTHS`) up to 256, above it the next multiple of
+    `STREAMED_TILE` (the streamed entry's channel tile)."""
     for width in KERNEL_WIDTHS:
         if c <= width:
             return width
-    raise NotImplementedError(
-        f"fused_trunk kernel takes up to {KERNEL_WIDTHS[-1]} filters, got {c}: a CTA of a wider "
-        "trunk cannot hold its taps, vectors and a weight stage beside a band of rows "
-        "(ROADMAP.md §2 item 3: trunk widths above 256)"
-    )
+    return -(-c // STREAMED_TILE) * STREAMED_TILE
 
 
 def pad_trunk_weights(w: TrunkWeights, width: int) -> TrunkWeights:
@@ -273,6 +277,46 @@ def _wide_cta_bytes(c: int, h: int, w: int, n: int) -> int:
         4 * c + 8 * c + 3 * c + c + c) * 4
 
 
+# the streamed entry's kernels (`Streamed` in csrc/convnext_trunk_streamed.cu):
+# a product CTA's tile (cells, channels), k rows of a stage and stages in
+# flight; the rows and columns of a depthwise tile at most; the threads of
+# a SE CTA (one board)
+STREAMED_BM, STREAMED_BN, STREAMED_BK = 128, 64, 32
+STREAMED_STAGES = 2
+STREAMED_DW_TILE = 20
+STREAMED_SE_THREADS = 1024
+STREAMED_KERNELS = ("depthwise", "product1", "product2", "se", "scale")
+# a part of each one's name as the card's profiler shows it
+STREAMED_NAMES = dict(zip(STREAMED_KERNELS, (
+    "streamed_depthwise", "streamed_product<false>", "streamed_product<true>", "streamed_se",
+    "streamed_scale")))
+
+
+def _streamed_bytes(c: int, h: int, w: int) -> dict[str, int]:
+    """`Streamed::*_bytes`: the dynamic shared memory of each kernel of the
+    streamed entry at width c (a multiple of `STREAMED_TILE`) on h x w
+    boards: the depthwise's f32 taps, BN and gate vectors of its 64
+    channels and its tile of the board with the 3-cell halo (the fewest
+    tiles of at most `STREAMED_DW_TILE` rows and columns: the whole board up
+    to 20x20); a product's `STREAMED_STAGES` A and B stages (rows padded by
+    8 bf16) or, after its k loop, its f32 tile (rows padded by 4), its
+    column norms, the settle count and a list entry for each output of the
+    tile; the SE's partial sums of its R splits (none when R = 1, so at
+    most 8 x 1024 floats).  None grows with C."""
+    tiles_r, tiles_c = -(-h // STREAMED_DW_TILE), -(-w // STREAMED_DW_TILE)
+    rows, cols = -(-h // tiles_r), -(-w // tiles_c)
+    depthwise = (49 + 3) * STREAMED_TILE * 4 + (rows + 6) * (cols + 6) * STREAMED_TILE * 2
+    stages = STREAMED_STAGES * (STREAMED_BM * (STREAMED_BK + 8) +
+                                STREAMED_BK * (STREAMED_BN + 8)) * 2
+    tile = STREAMED_BM * (STREAMED_BN + 4) * 4
+    product = max(stages, tile) + STREAMED_BN * 4 + 4 * 4 + STREAMED_BM * STREAMED_BN * 2
+    c8 = c // 8
+    splits = STREAMED_SE_THREADS // c8 if c8 <= STREAMED_SE_THREADS else 1
+    se = splits * c * 4 if splits > 1 else 0
+    return {"depthwise": depthwise, "product1": product, "product2": product, "se": se,
+            "scale": 0}
+
+
 def trunk_plan(c: int, h: int, w: int) -> TrunkPlan:
     """The launch of the trunk kernel for a C-filter trunk on h x w boards,
     by the shape alone: the width `kernel_width(c)`; up to 128 channels one
@@ -280,9 +324,14 @@ def trunk_plan(c: int, h: int, w: int) -> TrunkPlan:
     128 above 252 cells: every board up to 20x20 has one) a cluster of two
     CTAs a board; at 256 the wide entry with the fewest CTAs a board (up to
     `WIDE_MAX_CTAS`) each holding at most `WIDE_MAX_CELLS` cells within
-    that limit.  Raises NotImplementedError for C above 256 and for a board
-    that fits no entry."""
+    that limit; above 256 the streamed entry on every board (its
+    `smem_bytes` the most of its kernels', `_streamed_bytes`).  Raises
+    NotImplementedError only for a board, above 20x20, that no entry up to
+    256 channels fits."""
     width = kernel_width(c)
+    if width > KERNEL_WIDTHS[-1]:
+        return TrunkPlan("convnext_trunk_streamed", width, 1,
+                         max(_streamed_bytes(width, h, w).values()))
     if width == 256:
         for n in range(1, min(WIDE_MAX_CTAS, h) + 1):
             size = _wide_cta_bytes(width, h, w, n)
@@ -301,8 +350,8 @@ def trunk_plan(c: int, h: int, w: int) -> TrunkPlan:
 def fused_trunk(x: torch.Tensor, w: TrunkWeights) -> torch.Tensor:
     """Run the whole ConvNext block stack on a [B, H, W, C] bf16 activation:
     the CUDA kernel for CUDA tensors (`trunk_plan`: C below the kernel's
-    width on zero channels, `pad_trunk`), `fused_trunk_plain` for CPU
-    tensors."""
+    width on zero channels, `pad_trunk`; the streamed entry's scratch
+    allocated here), `fused_trunk_plain` for CPU tensors."""
     if x.device.type == "cpu":
         return fused_trunk_plain(x, w)
     bsz, h, wd, c = x.shape
@@ -333,7 +382,17 @@ def fused_trunk(x: torch.Tensor, w: TrunkWeights) -> torch.Tensor:
     stream = torch.cuda.current_stream(dev).cuda_stream
     cluster = plan.entry == "convnext_trunk_cluster_kernel"
     wide = plan.entry == "convnext_trunk_wide_kernel"
-    if wide:
+    streamed = plan.entry == "convnext_trunk_streamed"
+    if streamed:
+        # the kernels' scratch: ym, y1, the gated x and x4 like x; z and h1
+        # f32 and the gate bf16, [B, C]
+        acts = [torch.empty_like(x) for _ in range(4)]
+        zh = torch.empty((2, bsz, cp), dtype=torch.float32, device=dev)
+        gate = torch.empty((bsz, cp), dtype=BF16, device=dev)
+        err = lib.ag_convnext_trunk_streamed(
+            *args[:-5], *(t.data_ptr() for t in acts), zh[0].data_ptr(), zh[1].data_ptr(),
+            gate.data_ptr(), *args[-5:], stream)
+    elif wide:
         err = lib.ag_convnext_trunk_wide(*args, plan.ctas, stream)
     elif cluster:
         err = lib.ag_convnext_trunk_cluster(*args, stream)
@@ -343,12 +402,14 @@ def fused_trunk(x: torch.Tensor, w: TrunkWeights) -> torch.Tensor:
     fused_trunk.launches += 1
     fused_trunk.cluster_launches += cluster
     fused_trunk.wide_launches += wide
+    fused_trunk.streamed_launches += streamed
     return out if cp == c else out[..., :c].contiguous()
 
 
-fused_trunk.launches = 0  # every launch, of any entry
+fused_trunk.launches = 0  # every launch, of any entry (the streamed entry's 4 L + 1 as one)
 fused_trunk.cluster_launches = 0  # the cluster entry's
 fused_trunk.wide_launches = 0  # the wide entry's
+fused_trunk.streamed_launches = 0  # the streamed entry's
 
 
 def trunk_smem_bytes(c: int, h: int, w: int) -> int:
@@ -363,10 +424,24 @@ def trunk_occupancy(c: int, h: int = 15, w: int = 15) -> dict:
     thread, shared memory per CTA (bytes), local memory per thread (bytes;
     spills) and, for the cluster and wide entries, the clusters the card
     holds at once (0 for the one-CTA entry), with the entry, its width and
-    its CTAs a board."""
+    its CTAs a board.  For the streamed entry `kernels` holds the first
+    four of these for each of its kernels (`STREAMED_KERNELS`), and the
+    top-level values are the fewest CTAs per SM and the most registers,
+    shared memory and spills of any of them."""
     import ctypes
 
     plan = trunk_plan(c, h, w)
+    keys = ("ctas_per_sm", "registers", "smem_bytes", "local_bytes")
+    if plan.entry == "convnext_trunk_streamed":
+        info = (ctypes.c_int * (4 * len(STREAMED_KERNELS)))()
+        _build.check(_build.library().ag_convnext_trunk_streamed_occupancy(
+            plan.width, h, w, info), "trunk_occupancy")
+        kernels = {k: dict(zip(keys, info[4 * i:4 * i + 4]))
+                   for i, k in enumerate(STREAMED_KERNELS)}
+        most = {key: (min if key == "ctas_per_sm" else max)(v[key] for v in kernels.values())
+                for key in keys}
+        return dict(most, clusters=0, entry=plan.entry, width=plan.width, ctas=plan.ctas,
+                    kernels=kernels)
     info = (ctypes.c_int * 5)()
     _build.check(_build.library().ag_convnext_trunk_occupancy(
         plan.width, h, w, plan.ctas, info), "trunk_occupancy")

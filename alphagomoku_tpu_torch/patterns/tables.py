@@ -7,8 +7,8 @@ A copy of the rule definitions of the reference package's
 8^4-entry threat table (`_threat_of`, `_build_threat_table`), built in
 memory, and the open-three promotion data of the renju forbidden check
 (`_PROMO_*`), with the host helpers of the exact single-position code
-(`open_three_promotion_moves`, `narrow_down`, `expand`, `get_tables`,
-`get_pattern_table`, `get_threat_table`).  The
+(`open_three_promotion_moves`, `promotion_moves_batch`, `narrow_down`,
+`expand`, `get_tables`, `get_pattern_table`, `get_threat_table`).  The
 port classifies windows with bit math compiled from these rules
 (`patterns/bitwise.py`, which also builds the 4^10 pattern table from that
 bit math; `get_tables` hands it to the host code as numpy), so the
@@ -315,6 +315,18 @@ def open_three_promotion_moves(window: int) -> int:
         if (window & msk) == pat:
             return res
     return 0
+
+
+def promotion_moves_batch(windows: np.ndarray) -> np.ndarray:
+    """`open_three_promotion_moves` over uint32 windows [N] (numpy): the
+    first matching pattern's mask of each, uint16."""
+    out = np.zeros(windows.shape, dtype=np.uint16)
+    undecided = np.ones(windows.shape, dtype=bool)
+    for pat, msk, res in zip(_PROMO_PATTERNS, _PROMO_MASKS, _PROMO_RESULTS):
+        hit = undecided & ((windows & msk) == pat)
+        out[hit] = res
+        undecided &= ~hit
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -94,7 +94,8 @@ def _counts() -> dict:
     return {"score_scan": SSM.score_scan.launches, "score_backup": SSM.score_backup.launches,
             "fused_trunk": CF.fused_trunk.launches,
             "fused_trunk_cluster": CF.fused_trunk.cluster_launches,
-            "fused_trunk_wide": CF.fused_trunk.wide_launches}
+            "fused_trunk_wide": CF.fused_trunk.wide_launches,
+            "fused_trunk_streamed": CF.fused_trunk.streamed_launches}
 
 
 def _zero_counts() -> None:
@@ -103,6 +104,7 @@ def _zero_counts() -> None:
 
     SSM.score_scan.launches = SSM.score_backup.launches = 0
     CF.fused_trunk.launches = CF.fused_trunk.cluster_launches = CF.fused_trunk.wide_launches = 0
+    CF.fused_trunk.streamed_launches = 0
 
 
 def _sync(device) -> None:

@@ -67,6 +67,27 @@ def kernel_device_ms(fn, kernel: str, reps: int = 20) -> float:
     return sum(e.self_device_time_total for e in hits) / traced / 1e3
 
 
+def kernel_split_ms(fn, names, reps: int = 3) -> dict:
+    """For each of `names`, the mean device milliseconds per launch of the
+    CUDA kernels whose names contain it and the launches traced, over `reps`
+    calls of `fn` traced by torch.profiler after one warm-up call (None
+    where none was traced: late in a long run the profiler can miss some
+    or all of a call's launches, see `kernel_device_ms`)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    prof, _ = _traced(fn, reps)
+    kernels = _device_kernels(prof)
+    out = {}
+    for n in names:
+        hits = [e for e in kernels if n in e.key]
+        traced = sum(e.count for e in hits)
+        us = sum(e.self_device_time_total for e in hits)
+        out[n] = {"ms_per_launch": us / 1e3 / traced if traced else None, "traced": traced}
+    return out
+
+
 def _launched(event) -> tuple[int, float]:
     """Kernels launched under a traced CPU event and its children: count
     and device microseconds."""
@@ -103,7 +124,8 @@ def profile_steps(simulate, weights, state, steps: int) -> str:
             ph["device_ms"] += us / 1e3 / steps
             ph["launches"] += n / steps
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    names = ("convnext_trunk", "score_scan_kernel", "score_backup_kernel")
+    # "streamed_": the 4 L + 1 kernels of the trunk's streamed entry
+    names = ("convnext_trunk", "streamed_", "score_scan_kernel", "score_backup_kernel")
     traced = {k: sum(e.count for e in kernels if k in e.key) for k in names}
     traced_us = {k: sum(e.self_device_time_total for e in kernels if k in e.key) for k in names}
     return "profile: " + json.dumps({

@@ -12,8 +12,9 @@ compiled to a cubin with the port's nvcc flags (`ops/_build.py`), under
 instructions are compared line by line.  The default kernels: for
 `score_scan.cu` the K <= 32 instantiations, `score_scan_kernel<16>`,
 `<32>`, `score_backup_kernel<16>`, `<32>`; for `convnext_trunk.cu` the
-one-CTA trunk kernels `convnext_trunk_kernel<64>` and `<128>` and the
-cluster entry `convnext_trunk_cluster_kernel<128>`.  Prints one line per
+one-CTA trunk kernels `convnext_trunk_kernel<64>` and `<128>`, the
+cluster entry `convnext_trunk_cluster_kernel<128>` and the wide entry
+`convnext_trunk_wide_kernel<256>`.  Prints one line per
 kernel and exits 1 if any differs.
 
 The K <= 32 kernels and the wide ones share device helpers (the chain,
@@ -42,7 +43,8 @@ NARROW = ("score_scan_kernelILi16E", "score_scan_kernelILi32E", "score_backup_ke
 DEFAULT_KERNELS = {
     "score_scan.cu": NARROW,
     "convnext_trunk.cu": ("convnext_trunk_kernelILi64E", "convnext_trunk_kernelILi128E",
-                          "convnext_trunk_cluster_kernelILi128E"),
+                          "convnext_trunk_cluster_kernelILi128E",
+                          "convnext_trunk_wide_kernelILi256E"),
 }
 
 

@@ -1,5 +1,5 @@
-"""Small shared utilities (reference: src/utils/misc.cpp): a copy of
-`get_simulations_for_move` from `alphagomoku_tpu/utils/misc.py`."""
+"""Small shared utilities (reference: src/utils/misc.cpp): copies of
+`get_simulations_for_move` and `zfill` from `alphagomoku_tpu/utils/misc.py`."""
 
 from __future__ import annotations
 
@@ -15,3 +15,8 @@ def get_simulations_for_move(
         1.0, max(0.0, (draw_rate - draw_threshold) / (1.0 - draw_threshold))
     )
     return int(max_simulations - reduction * (max_simulations - min_simulations))
+
+
+def zfill(value: int, length: int) -> str:
+    """|value| in decimal, padded with zeros to `length` digits."""
+    return str(abs(value)).zfill(length)

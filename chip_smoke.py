@@ -196,19 +196,25 @@ Phases, one line each (any failure exits non-zero):
      `convnext_trunk_cluster_kernel<128>`: two CTAs a board), C = 256 on
      15x15 and 20x20, C = 192 on 15x15 and C = 136 on 16x16 (the wide
      entry, `convnext_trunk_wide_kernel<256>`: 1 to 8 CTAs a board, 129 to
-     255 on zero channels), each held within TRUNK_LIMITS of the plain
-     trunk and timed beside it, the library trunk (unpadded weights) and
-     the bound (the trunk's own C), with the entry's occupancy; then one
-     simulation step each of the 20x20 8x128 and 8x256 networks
-     (`SEARCH20_BATCH` boards), every trunk launch the cluster entry's or
-     the wide entry's, and `SEARCH20_TIMED` warm steps timed after each;
-     the seeded 8x256 network at the bench configuration: its trunk held
-     and timed at B = 1280, `WIDE256_SIMS` sims of its search (every trunk
-     launch the wide entry's) and 5 steps traced; the launcher's engine
-     with a seeded 8x256 network (`ProgramManager(blocks=8, filters=256)`,
-     START 20, one TURN, a 50-sim search at B = 1) answering an empty
-     cell on the wide entry; and `vectorized.windows_at_many` and
-     `pattern_types` on the card bit-equal to the CPU;
+     255 on zero channels), C = 384 on 15x15 and 20x20, C = 512 on 20x20,
+     C = 300 on 16x16 and C = 1024 on 9x9 (the streamed entry,
+     `csrc/convnext_trunk_streamed.cu`: 4 L + 1 launches a call, 300 on
+     320 channels), each held within TRUNK_LIMITS of the plain trunk,
+     block by block within BLOCK_LIMITS, a left-out bias rejected, and
+     timed beside it, the library trunk (unpadded weights) and the bound
+     (the trunk's own C), with the entry's occupancy (each kernel's for
+     the streamed entry); then one simulation step each of the 20x20
+     8x128, 8x256 and 8x384 networks (`SEARCH20_BATCH` boards), every
+     trunk launch the cluster, wide or streamed entry's, and
+     `SEARCH20_TIMED` warm steps timed after each; the seeded 8x256 and
+     8x384 networks at the bench configuration: each trunk held and timed
+     at B = 1280, `WIDE256_SIMS` / `WIDE384_SIMS` sims of its search
+     (every trunk launch the wide / streamed entry's) and 5 steps traced;
+     the launcher's engine with a seeded 8x256 and 8x384 network
+     (`ProgramManager(blocks=8, filters=256 / 384)`, START 20, one TURN, a
+     50-sim search at B = 1) answering an empty cell on the wide /
+     streamed entry; and `vectorized.windows_at_many` and `pattern_types`
+     on the card bit-equal to the CPU;
  25. tensor parallelism (last) - `tools/dryrun_multichip.py` at n = 2 as
      child processes on this one card over gloo with CUDA tensors, mesh
      (1, 2): the float32 flagship's column-parallel step held against the
@@ -241,7 +247,7 @@ import sys
 import time
 from pathlib import Path
 
-from alphagomoku_tpu_torch.tools.profiling import kernel_device_ms, profile_steps
+from alphagomoku_tpu_torch.tools.profiling import kernel_device_ms, kernel_split_ms, profile_steps
 
 ROOT = Path(__file__).resolve().parent
 CKPT = ROOT / "runs" / "flagship_r4" / "checkpoint" / "network_23.msgpack"
@@ -312,7 +318,8 @@ def _counts() -> dict:
     return {"score_scan": SSM.score_scan.launches, "score_backup": SSM.score_backup.launches,
             "fused_trunk": CF.fused_trunk.launches,
             "fused_trunk_cluster": CF.fused_trunk.cluster_launches,
-            "fused_trunk_wide": CF.fused_trunk.wide_launches}
+            "fused_trunk_wide": CF.fused_trunk.wide_launches,
+            "fused_trunk_streamed": CF.fused_trunk.streamed_launches}
 
 
 def _zero_counts() -> None:
@@ -321,6 +328,7 @@ def _zero_counts() -> None:
 
     SSM.score_scan.launches = SSM.score_backup.launches = 0
     CF.fused_trunk.launches = CF.fused_trunk.cluster_launches = CF.fused_trunk.wide_launches = 0
+    CF.fused_trunk.streamed_launches = 0
 
 
 def bench_boards(batch: int, seed: int = 0):
@@ -578,12 +586,24 @@ def trunk_phase(net, planes, tag: str, plain_reps: int = 5) -> dict:
         trunk_lib_ms = time_cuda(lambda: library_trunk(x, tw_c))
     L, (B, h, w, C) = tw.dw.shape[0], x.shape
     occ = CF.trunk_occupancy(C, h, w)
+    split = None
+    if occ["entry"] == "convnext_trunk_streamed":
+        # the streamed entry's device time by kernel: 3 calls traced, L
+        # launches of each kernel a call (1 of the scale)
+        with torch.no_grad():
+            split = kernel_split_ms(lambda: CF.fused_trunk(x, tw),
+                                    list(CF.STREAMED_NAMES.values()))
+        print(f"{tag} by kernel (device ms a launch, launches traced of {3 * tw.dw.shape[0]}, "
+              "3 of the scale): " + "; ".join(
+                  f"{k} " + (f"{v['ms_per_launch']:.4f} ms" if v["traced"] else "not traced")
+                  + f", {v['traced']}" for k, v in split.items()), flush=True)
     print(f"{tag} occupancy: C={C} {h}x{w}: {occ['entry']} at width {occ['width']}, "
           f"{occ['registers']} registers per thread, {occ['ctas_per_sm']} CTAs per SM"
           + (f" ({occ['clusters']} clusters of {occ['ctas']} at once)" if occ["clusters"]
              else "")
           + f", {occ['smem_bytes']} bytes of shared memory per CTA, {occ['local_bytes']} bytes "
-          "of local memory (spills) per thread", flush=True)
+          "of local memory (spills) per thread"
+          + (f"; by kernel {occ['kernels']}" if "kernels" in occ else ""), flush=True)
     # the bound of the trunk's own function, at its C (a padded width's
     # extra channels are the kernel's cost, not the function's work)
     dw_flops = 2.0 * 49 * h * w * C * B * L
@@ -603,7 +623,7 @@ def trunk_phase(net, planes, tag: str, plain_reps: int = 5) -> dict:
         share_differ=trunk["share_differ"], share_over_2ulps=trunk["share_over"], ms=trunk_ms,
         call_ms=trunk_call_ms, plain_ms=trunk_plain_ms, bound_ms=trunk_bound_ms,
         bound_by="operations" if ops_ms >= bytes_ms else "bytes", library_ms=trunk_lib_ms,
-        **occ,
+        **occ, **({"kernel_split": split} if split else {}),
     )
 
 
@@ -642,10 +662,10 @@ def search_phase(weights, tables, cfg, boards, stm, sims: int, tag: str, net_app
     step (score_backup at leaf_batch 1, score_scan through
     score_backup_paths above it), the trunk `trunk_launches` times (by
     default once a step and once for the roots), and as many times the
-    count of the entry named by `trunk_entry` ("fused_trunk_cluster" or
-    "fused_trunk_wide"; the other entry's count 0); the search's
-    invariants; a line with sims/s and launches per step.  Returns the final state and
-    the launch counts."""
+    count of the entry named by `trunk_entry` ("fused_trunk_cluster",
+    "fused_trunk_wide" or "fused_trunk_streamed"; the other entries'
+    counts 0); the search's invariants; a line with sims/s and launches per
+    step.  Returns the final state and the launch counts."""
     import torch
     from alphagomoku_tpu_torch.ops import convnext_fused as CF
     from alphagomoku_tpu_torch.ops import score_scan as SSM
@@ -667,7 +687,8 @@ def search_phase(weights, tables, cfg, boards, stm, sims: int, tag: str, net_app
     if launches != {"score_scan": steps if batched else 0,
                     "score_backup": 0 if batched else steps, "fused_trunk": trunk,
                     "fused_trunk_cluster": trunk if trunk_entry == "fused_trunk_cluster" else 0,
-                    "fused_trunk_wide": trunk if trunk_entry == "fused_trunk_wide" else 0}:
+                    "fused_trunk_wide": trunk if trunk_entry == "fused_trunk_wide" else 0,
+                    "fused_trunk_streamed": trunk if trunk_entry == "fused_trunk_streamed" else 0}:
         raise SystemExit(f"{tag}: the kernels were not launched once per step inside "
                          f"run_search: {launches}")
     tree = state.tree
@@ -933,7 +954,7 @@ def selfplay_run(tag, weights, tables, mcfg, scfg, chunk: int, stop_after_first:
     moves, sims = len(checks.seconds), scfg.num_simulations
     want = {"score_scan": 0, "score_backup": moves * sims,
             "fused_trunk": moves * (sims + 1) + 1 + calls, "fused_trunk_cluster": 0,
-            "fused_trunk_wide": 0}
+            "fused_trunk_wide": 0, "fused_trunk_streamed": 0}
     if result is None or snap.exists() or launches != want:
         raise SystemExit(f"{tag}: launches {launches}, expected {want} for {moves} moves "
                          f"searched, or the run did not finish")
@@ -1382,7 +1403,7 @@ def train_phase(paths: dict, generation: dict) -> dict:
     sims = mgr.cfg.num_simulations
     want = {"score_scan": 0, "score_backup": plies[0] * 2 * sims,
             "fused_trunk": plies[0] * 2 * (sims + 1) + 1, "fused_trunk_cluster": 0,
-            "fused_trunk_wide": 0}
+            "fused_trunk_wide": 0, "fused_trunk_streamed": 0}
     line = json.loads((wd / "gating.txt").read_text().splitlines()[-1])
     ended = (res.outcomes != int(GameOutcome.UNKNOWN)).sum() + res.truncated
     if (line["iteration"] != 29 or int(res.pentanomial.sum()) != TRAIN_GATING_GAMES // 2
@@ -1965,7 +1986,8 @@ def zoo_phase(generation: dict, flagship_backup_ms: float) -> dict:
             raise SystemExit("zoo: the selfcheck search failed in process")
         paths["selfcheck"] = _counts()
         if paths["selfcheck"] != {"score_scan": 0, "score_backup": 16, "fused_trunk": 0,
-                                  "fused_trunk_cluster": 0, "fused_trunk_wide": 0}:
+                                  "fused_trunk_cluster": 0, "fused_trunk_wide": 0,
+                                  "fused_trunk_streamed": 0}:
             raise SystemExit(f"zoo: the selfcheck search launched {paths['selfcheck']}")
 
         out, _ = child.communicate(timeout=300)
@@ -2437,7 +2459,7 @@ def anchor_match_phase(weights, tables) -> dict:
     # are cut, the match evaluates the final boards with the candidate once
     want = {"score_scan": 0, "score_backup": 2 * n_plies * ANCHOR_MATCH_SIMS,
             "fused_trunk": n_plies * (ANCHOR_MATCH_SIMS + 1) + (1 if res.truncated else 0),
-            "fused_trunk_cluster": 0, "fused_trunk_wide": 0}
+            "fused_trunk_cluster": 0, "fused_trunk_wide": 0, "fused_trunk_streamed": 0}
     if launches != want:
         raise SystemExit(f"anchor match: launches {launches}, expected {want}")
     board, stm = torch.cat([b for b, _ in plies]), torch.cat([t for _, t in plies])
@@ -2589,12 +2611,18 @@ TRUNK_SHAPES = {  # tag -> (filters, blocks, batch, rows, cols)
     "C=256 20x20": (256, 8, 32, 20, 20),  # 5 CTAs a board
     "C=192 15x15": (192, 6, 32, 15, 15),  # padded to 256
     "C=136 16x16": (136, 2, 32, 16, 16),  # padded to 256, 3 CTAs a board
+    "C=384 15x15": (384, 8, 32, 15, 15),  # the streamed entry, 4 L + 1 launches a call
+    "C=384 20x20": (384, 8, 32, 20, 20),
+    "C=512 20x20": (512, 2, 32, 20, 20),
+    "C=300 16x16": (300, 2, 32, 16, 16),  # padded to 320
+    "C=1024 9x9": (1024, 1, 8, 9, 9),
 }
 SHAPES_SEED = 0  # torch.Generator seed of each network's weights
-SEARCH20_BATCH = 64  # boards of the 20x20 searches (8x128, 8x256)
+SEARCH20_BATCH = 64  # boards of the 20x20 searches (8x128, 8x256, 8x384)
 SEARCH20_SIMS = 1  # the counted search: one simulation step, cold
 SEARCH20_TIMED = 5  # steps timed after it, one warm-up step first
 WIDE256_SIMS = 50  # the 8x256 search at the bench configuration (B = 1280, 15x15)
+WIDE384_SIMS = 16  # the 8x384 search at the bench configuration
 VECTORIZED_BOARDS = 64  # seeded boards of the vectorized functions' card check
 
 
@@ -2645,16 +2673,17 @@ def search20_phase(weights, tables, tag: str, trunk_entry: str) -> tuple[dict, l
     return launches, step_ms
 
 
-def engine_8x256_phase() -> dict:
-    """The launcher's engine with a seeded 8x256 network
-    (`ProgramManager(blocks=8, filters=256)`): START 20 and one TURN, its
-    search cut to one chunk of `ENGINE_MAX_NODE` sims at B = 1; the answer
-    on an empty cell, every trunk launch the wide entry's."""
+def engine_wide_phase(filters: int, entry: str) -> dict:
+    """The launcher's engine with a seeded 8-block network of `filters`
+    (`ProgramManager(blocks=8, filters=filters)`): START 20 and one TURN,
+    its search cut to one chunk of `ENGINE_MAX_NODE` sims at B = 1; the
+    answer on an empty cell, every trunk launch `entry`'s."""
     import io
 
     from alphagomoku_tpu_torch.engine.manager import ProgramManager
 
-    mgr = ProgramManager(protocol="extended", blocks=8, filters=256, device="cuda",
+    tag = f"engine 8x{filters}"
+    mgr = ProgramManager(protocol="extended", blocks=8, filters=filters, device="cuda",
                          instream=None, outstream=io.StringIO())
     _zero_counts()
     with _EngineLog() as log:
@@ -2662,18 +2691,19 @@ def engine_8x256_phase() -> dict:
     launches = _counts()
     answers = _answers(out)
     if len(log.searches) != 1 or len(answers) != 1:
-        raise SystemExit(f"engine 8x256: {len(log.searches)} searches, answered {out}")
+        raise SystemExit(f"{tag}: {len(log.searches)} searches, answered {out}")
     s = log.searches[0]
     steps = s["timings"].get("steps", 0)
     want = {"score_scan": 0, "score_backup": steps, "fused_trunk": steps + 1,
-            "fused_trunk_cluster": 0, "fused_trunk_wide": steps + 1}
+            "fused_trunk_cluster": 0, "fused_trunk_wide": 0, "fused_trunk_streamed": 0}
+    want[entry] = steps + 1
     if steps < 1 or launches != want:
-        raise SystemExit(f"engine 8x256: {steps} steps, launches {launches} (expected {want})")
+        raise SystemExit(f"{tag}: {steps} steps, launches {launches} (expected {want})")
     row, col = map(int, answers[0].split(","))
     if s["board"][row, col] != 0 or (row, col) == (10, 10):
-        raise SystemExit(f"engine 8x256: answered the occupied cell {answers[0]}")
+        raise SystemExit(f"{tag}: answered the occupied cell {answers[0]}")
     step_ms = 1e3 * s["timings"]["simulate"] / steps
-    print(f"engine 8x256 20x20 (seeded): answer {answers[0]} in {s['seconds']:.2f} s, "
+    print(f"{tag} 20x20 (seeded): answer {answers[0]} in {s['seconds']:.2f} s, "
           f"{steps} steps, {step_ms:.2f} ms per step, launches {launches}", flush=True)
     return dict(launches=launches, seconds=s["seconds"], step_ms=step_ms, steps=steps)
 
@@ -2703,6 +2733,30 @@ def vectorized_on_card(tables) -> None:
           "pattern types)", flush=True)
 
 
+def bench_wide_phase(tables, boards, stm, filters: int, sims: int, entry: str) -> dict:
+    """The seeded 8-block network of `filters` at the bench configuration
+    (`boards`, `stm`): its trunk held and timed at B = 1280 (`trunk_phase`,
+    the plain trunk timed once), `sims` sims of its search, every trunk
+    launch `entry`'s, and its next steps traced."""
+    import torch
+    from alphagomoku_tpu_torch.models.networks import create_network, init_random_
+    from alphagomoku_tpu_torch.ops import convnext_fused as CF
+    from alphagomoku_tpu_torch.search import mcts
+
+    net = init_random_(create_network("ConvNextPVQMraw", blocks=8, filters=filters),
+                       torch.Generator().manual_seed(SHAPES_SEED)).to("cuda").eval()
+    weights = CF.pack_weights(net)
+    trunk = trunk_phase(net, root_planes(tables, boards, stm), f"fused_trunk {filters}",
+                        plain_reps=1)
+    cfg = mcts.MCTSConfig(max_nodes=808, max_edges=32, max_depth=16)
+    state, launches = search_phase(weights, tables, cfg, boards, stm, sims,
+                                   f"search 8x{filters}", trunk_entry=entry)
+    simulate = mcts.make_simulate_fn(CF.fused_apply, tables, cfg)
+    print(profile_steps(simulate, weights, state, PROFILE_STEPS).replace(
+        "profile:", f"profile 8x{filters}:"), flush=True)
+    return {"trunk": trunk, "launches": launches}
+
+
 def trunk_shapes_phase(tables, boards, stm) -> dict:
     """24. The trunk kernel at each of `TRUNK_SHAPES` (a seeded
     `init_random_` network built for the board), through `trunk_phase`:
@@ -2711,17 +2765,15 @@ def trunk_shapes_phase(tables, boards, stm) -> dict:
     library trunks and the bound, with the entry's occupancy; then one
     simulation step of the 8x128 network on 20x20 boards, in which every
     trunk launch is the cluster entry's, and warm steps on from its tree,
-    each timed; the same for the 8x256 network, on the wide entry; the
-    seeded 8x256 network at the bench configuration (`boards`, `stm`):
-    its trunk held and timed at B = 1280, and `WIDE256_SIMS` sims of its
-    search, every trunk launch the wide entry's, and its steps traced; the
-    launcher's engine at 8x256; the two vectorized functions on the
-    card."""
+    each timed; the same for the 8x256 network, on the wide entry, and the
+    8x384 network, on the streamed entry; the seeded 8x256 and 8x384
+    networks at the bench configuration (`boards`, `stm`, `bench_wide_phase`:
+    `WIDE256_SIMS` and `WIDE384_SIMS` sims); the launcher's engine at 8x256
+    and 8x384; the two vectorized functions on the card."""
     import torch
     from alphagomoku_tpu_torch.game.types import CROSS
     from alphagomoku_tpu_torch.models.networks import create_network, init_random_
     from alphagomoku_tpu_torch.ops import convnext_fused as CF
-    from alphagomoku_tpu_torch.search import mcts
 
     t0 = time.perf_counter()
     out, nets = {}, {}
@@ -2732,35 +2784,31 @@ def trunk_shapes_phase(tables, boards, stm) -> dict:
         s = torch.full((batch,), CROSS, dtype=torch.int8, device="cuda")
         out[tag] = trunk_phase(net, root_planes(tables, b, s), f"fused_trunk {tag}")
         out[tag]["plan"] = CF.trunk_plan(filters, rows, cols)._asdict()
-        nets[tag] = net
-    launches, step_ms = search20_phase(CF.pack_weights(nets["C=128 20x20"]), tables,
-                                       "search 8x128 20x20", "fused_trunk_cluster")
-    launches256_20, step256_ms = search20_phase(CF.pack_weights(nets["C=256 20x20"]), tables,
-                                                "search 8x256 20x20", "fused_trunk_wide")
+        if tag in ("C=128 20x20", "C=256 20x20", "C=384 20x20"):
+            nets[tag] = net
+    searches20 = {}
+    for tag, entry in (("C=128 20x20", "fused_trunk_cluster"), ("C=256 20x20", "fused_trunk_wide"),
+                       ("C=384 20x20", "fused_trunk_streamed")):
+        filters = TRUNK_SHAPES[tag][0]
+        searches20[filters] = search20_phase(CF.pack_weights(nets[tag]), tables,
+                                             f"search 8x{filters} 20x20", entry)
     del nets
 
-    # the 8x256 network at the bench configuration
-    net = init_random_(create_network("ConvNextPVQMraw", blocks=8, filters=256),
-                       torch.Generator().manual_seed(SHAPES_SEED)).to("cuda").eval()
-    weights = CF.pack_weights(net)
-    trunk256 = trunk_phase(net, root_planes(tables, boards, stm), "fused_trunk 256",
-                           plain_reps=1)
-    cfg = mcts.MCTSConfig(max_nodes=808, max_edges=32, max_depth=16)
-    state, launches256 = search_phase(weights, tables, cfg, boards, stm, WIDE256_SIMS,
-                                      "search 8x256", trunk_entry="fused_trunk_wide")
-    simulate = mcts.make_simulate_fn(CF.fused_apply, tables, cfg)
-    profile256 = profile_steps(simulate, weights, state, PROFILE_STEPS)
-    print(profile256.replace("profile:", "profile 8x256:"), flush=True)
-    del state, simulate, weights, net
-
-    engine256 = engine_8x256_phase()
+    bench256 = bench_wide_phase(tables, boards, stm, 256, WIDE256_SIMS, "fused_trunk_wide")
+    bench384 = bench_wide_phase(tables, boards, stm, 384, WIDE384_SIMS, "fused_trunk_streamed")
+    engine256 = engine_wide_phase(256, "fused_trunk_wide")
+    engine384 = engine_wide_phase(384, "fused_trunk_streamed")
     vectorized_on_card(tables)
     seconds = time.perf_counter() - t0
     print(f"phase 24: {seconds:.1f} s by its own clock", flush=True)
-    return {"shapes": out, "launches": launches, "step_ms": step_ms,
-            "launches_8x256_20x20": launches256_20, "step_ms_8x256_20x20": step256_ms,
-            "trunk256": trunk256, "launches_8x256": launches256,
-            "engine_8x256": engine256, "seconds": seconds}
+    return {"shapes": out, "launches": searches20[128][0], "step_ms": searches20[128][1],
+            "launches_8x256_20x20": searches20[256][0],
+            "step_ms_8x256_20x20": searches20[256][1],
+            "launches_8x384_20x20": searches20[384][0],
+            "step_ms_8x384_20x20": searches20[384][1],
+            "trunk256": bench256["trunk"], "launches_8x256": bench256["launches"],
+            "trunk384": bench384["trunk"], "launches_8x384": bench384["launches"],
+            "engine_8x256": engine256, "engine_8x384": engine384, "seconds": seconds}
 
 
 DRYRUN_N = 2  # processes of tools/dryrun_multichip.py on the one card (tp = 2)
@@ -3000,6 +3048,9 @@ def main() -> int:
     paths["search_8x256_20x20"] = shapes["launches_8x256_20x20"]
     paths["8x256"] = shapes["launches_8x256"]
     paths["engine_8x256"] = shapes["engine_8x256"]["launches"]
+    paths["search_8x384_20x20"] = shapes["launches_8x384_20x20"]
+    paths["8x384"] = shapes["launches_8x384"]
+    paths["engine_8x384"] = shapes["engine_8x384"]["launches"]
 
     # 12. the strength search: network_23 and the VCT leaf solver (bench.py's
     # strength configuration)
@@ -3103,6 +3154,15 @@ def main() -> int:
                                        "C=136 16x16")},
         engine_8x256=shapes["engine_8x256"],
         step_ms_8x256_20x20=shapes["step_ms_8x256_20x20"]))
+    kernels.append(dict(
+        name="fused_trunk_streamed", route="cuda",
+        source="alphagomoku_tpu_torch/csrc/convnext_trunk_streamed.cu",
+        replaces="alphagomoku_tpu/ops/convnext_fused.py:92", shape="C=384 L=8 B=1280 15x15",
+        **shapes["trunk384"], shapes={t: shapes["shapes"][t] for t in
+                                      ("C=384 15x15", "C=384 20x20", "C=512 20x20",
+                                       "C=300 16x16", "C=1024 9x9")},
+        engine_8x384=shapes["engine_8x384"],
+        step_ms_8x384_20x20=shapes["step_ms_8x384_20x20"]))
     top = "K=81 D=16"  # the wide entries' headline shape: the selfcheck's K
     for name in ("score_scan", "score_backup"):
         kernels.append(dict(
@@ -3123,23 +3183,23 @@ def main() -> int:
     main_path = {"score_scan": "leaf_batch", "score_backup": "flagship",
                  "fused_trunk": "flagship", "score_scan_wide": "leaf_batch_k81",
                  "score_backup_wide": "selfcheck", "fused_trunk_cluster": "search_20x20",
-                 "fused_trunk_wide": "8x256"}
+                 "fused_trunk_wide": "8x256", "fused_trunk_streamed": "8x384"}
     for k in kernels:
         # the K > 32 scan entries count with their wrappers; the trunk's
-        # cluster and wide entries have counts of their own
+        # cluster, wide and streamed entries have counts of their own
         wide_kernel = k["name"] in ("score_scan_wide", "score_backup_wide")
         wrapper = k["name"].removesuffix("_wide") if wide_kernel else k["name"]
         k["launches"] = paths[main_path[k["name"]]][wrapper]
         k["launches_by_path"] = {p: n[wrapper] for p, n in paths.items()
                                  if (p in wide_paths) == wide_kernel}
-    # the wide entry runs on this slice's paths and no other
-    wide_elsewhere = {p: n["fused_trunk_wide"] for p, n in paths.items()
-                      if p not in ("search_8x256_20x20", "8x256", "engine_8x256")
-                      and n["fused_trunk_wide"]}
-    if wide_elsewhere or not all(paths[p]["fused_trunk_wide"] for p in
-                                 ("search_8x256_20x20", "8x256", "engine_8x256")):
-        raise SystemExit(f"fused_trunk_wide: launched off its paths or not on them: "
-                         f"{ {p: n['fused_trunk_wide'] for p, n in paths.items()} }")
+    # the wide and streamed entries run on their own paths and no other
+    for entry, own in (("fused_trunk_wide", ("search_8x256_20x20", "8x256", "engine_8x256")),
+                       ("fused_trunk_streamed",
+                        ("search_8x384_20x20", "8x384", "engine_8x384"))):
+        elsewhere = {p: n[entry] for p, n in paths.items() if p not in own and n[entry]}
+        if elsewhere or not all(paths[p][entry] for p in own):
+            raise SystemExit(f"{entry}: launched off its paths or not on them: "
+                             f"{ {p: n[entry] for p, n in paths.items()} }")
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

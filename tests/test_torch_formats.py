@@ -2,10 +2,14 @@
 score packing, v100/v200/v201 records, save_buffer/load_buffer) held
 against the JAX package's writer and parser: files byte-identical for
 every format, compressed and not, and the reference's own serializer
-(oracle/parity_oracle, where it is built) byte-identical on its datapacks."""
+(oracle/parity_oracle, where it is built) byte-identical on its datapacks;
+`parse_game_native` through a codec built from native/agdata.cpp equal to
+the Python parser."""
 
 import os
+import shutil
 import subprocess
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -217,3 +221,39 @@ def test_v201_byte_parity_vs_reference_oracle():
         proc.stdin.write("quit\n")
         proc.stdin.flush()
         proc.wait(timeout=10)
+
+
+@pytest.fixture(scope="module")
+def native_codec(tmp_path_factory):
+    """native/agdata.cpp built with g++ (the flags of native/Makefile) into a
+    temporary directory."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build native/agdata.cpp")
+    so = tmp_path_factory.mktemp("native") / "libagdata.so"
+    src = Path(__file__).resolve().parents[1] / "native" / "agdata.cpp"
+    subprocess.run(["g++", "-O2", "-fPIC", "-std=c++17", "-shared", "-o", str(so), str(src)],
+                   check=True)
+    return so
+
+
+@pytest.mark.parametrize("fmt", [100, 200, 201])
+def test_parse_game_native_equals_python(native_codec, fmt):
+    """`parse_game_native` through the codec built from native/agdata.cpp
+    reads every game of a buffer to the values and offsets of the port's
+    Python `parse_game` (so of the JAX package's, by
+    test_game_bytes_and_parse_equal_jax)."""
+    blob = bytearray()
+    for game in _games(F, 70 + fmt, 4, 15, 15):
+        F._serialize_game(game, fmt, blob)
+    off = native_off = 0
+    while off < len(blob):
+        ref, off = F.parse_game(memoryview(bytes(blob)), off, fmt, 225)
+        ours, native_off = F.parse_game_native(blob, native_off, fmt, 225, path=native_codec)
+        assert native_off == off
+        _assert_games_equal([ours], [ref])
+    assert F.native_lib(native_codec) is F.native_lib(native_codec)
+
+
+def test_parse_game_native_without_the_library(tmp_path):
+    assert F.native_lib(tmp_path / "libagdata.so") is None
+    assert F.parse_game_native(b"", 0, 201, 225, path=tmp_path / "libagdata.so") is None

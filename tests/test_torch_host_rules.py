@@ -56,6 +56,22 @@ def test_tables_equal(rules):
         assert TT.open_three_promotion_moves(int(wnd)) == JT.open_three_promotion_moves(int(wnd))
 
 
+def test_promotion_moves_batch_equals_jax():
+    """`promotion_moves_batch` on uint32 windows equals the JAX package's,
+    bit for bit, on random 22-bit windows and on each promotion pattern
+    with random bits outside its mask (so every pattern is hit)."""
+    rng = np.random.default_rng(1)
+    hits = [(int(p) | (int(r) & ~int(m) & ((1 << 22) - 1)))
+            for p, m in zip(JT._PROMO_PATTERNS, JT._PROMO_MASKS)
+            for r in rng.integers(0, 1 << 22, size=8)]
+    windows = np.concatenate([rng.integers(0, 1 << 22, size=256),
+                              np.asarray(hits)]).astype(np.uint32)
+    ours, ref = TT.promotion_moves_batch(windows), JT.promotion_moves_batch(windows)
+    assert ours.dtype == ref.dtype == np.uint16 and np.array_equal(ours, ref)
+    assert (ours[256:] != 0).all()
+    assert [int(v) for v in ours] == [TT.open_three_promotion_moves(int(w)) for w in windows]
+
+
 @pytest.mark.parametrize("fixture", GAME, ids=[f["name"] for f in GAME])
 def test_game_fixture(fixture):
     """Each fixture replayed through both packages: every outcome and

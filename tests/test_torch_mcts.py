@@ -159,8 +159,9 @@ def test_unported_config_raises():
     """No search option of the JAX package is left unported: a policy or
     `init_to` name that no selector has raises ValueError, and another
     policy, leaf_batch > 1, symmetry averaging, the VCF and VCT leaf
-    solvers with the loss prover and root noise run; a trunk width the
-    kernel has no layout for raises naming ROADMAP.md."""
+    solvers with the loss prover and root noise run; every trunk width has
+    a kernel entry (257 the streamed one), and the trunk raises on a device
+    it has no kernel for rather than falling back."""
     boards, stm = boards_and_stm()
     tables = TV.device_tables(GameRules.FREESTYLE)
     for cfg in (TORCH_CFG._replace(policy="uct"), TORCH_CFG._replace(init_to="zero")):
@@ -182,8 +183,9 @@ def test_unported_config_raises():
     assert not torch.equal(state.noisy_prior, state.tree.edge_prior[:, 0].float())
     from alphagomoku_tpu_torch.ops import convnext_fused as CF
 
+    assert CF.trunk_plan(257, 15, 15).entry == "convnext_trunk_streamed"
     x = torch.zeros((1, 15, 15, 257), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="unsupported device meta"):
         CF.fused_trunk(x.to("meta"), None)
 
 

@@ -208,3 +208,25 @@ def test_static_analyze_matches_jax(rules):
                               ta.node_score.numpy().astype(np.int64))
     # the positions exercise the proven stages
     assert (TS.is_proven(ta.node_score)).any()
+
+
+def test_narrow_down_matches_jax():
+    """The device `narrow_down` (int64 windows) equals the JAX package's
+    (uint32) on random 22-bit windows."""
+    windows = np.random.default_rng(5).integers(0, 1 << 22, size=(64, 4)).astype(np.uint32)
+    ref = np.asarray(JV.narrow_down(jnp.asarray(windows)))
+    ours = TV.narrow_down(torch.from_numpy(windows.astype(np.int64)))
+    assert ours.dtype == torch.int64 and np.array_equal(ours.numpy(), ref.astype(np.int64))
+    assert int(ours.max()) < (1 << 20)
+
+
+def test_value_expectation_matches_jax():
+    """`models.value_expectation` (w + d/2) equals the JAX package's export,
+    bit for bit, on random (win, draw, loss) rows."""
+    from alphagomoku_tpu.models import value_expectation as jax_value_expectation
+    from alphagomoku_tpu_torch.models import value_expectation
+
+    value = np.random.default_rng(6).random((32, 3)).astype(np.float32)
+    ref = np.asarray(jax_value_expectation(jnp.asarray(value)))
+    ours = value_expectation(torch.from_numpy(value))
+    assert ours.dtype == torch.float32 and np.array_equal(ours.numpy(), ref)

@@ -32,12 +32,13 @@ from alphagomoku_tpu.models.networks import NetOutput as JaxNetOutput
 from alphagomoku_tpu.search import mcts as JM
 from alphagomoku_tpu.selfplay import selfplay as JSP
 from alphagomoku_tpu.utils.misc import get_simulations_for_move as jax_get_simulations_for_move
+from alphagomoku_tpu.utils.misc import zfill as jax_zfill
 
 from alphagomoku_tpu_torch.game import vectorized as TV
 from alphagomoku_tpu_torch.models.networks import NetOutput
 from alphagomoku_tpu_torch.search import mcts as TM
 from alphagomoku_tpu_torch.selfplay import selfplay as TSP
-from alphagomoku_tpu_torch.utils.misc import get_simulations_for_move
+from alphagomoku_tpu_torch.utils.misc import get_simulations_for_move, zfill
 from tests import torch_golden
 from tests.test_torch_mcts import jax_tables
 
@@ -252,3 +253,11 @@ def test_get_simulations_for_move():
         for max_sims, min_sims in budgets:
             assert get_simulations_for_move(rate, max_sims, min_sims) == \
                 jax_get_simulations_for_move(rate, max_sims, min_sims), (rate, max_sims, min_sims)
+
+
+def test_zfill():
+    """The port's copy equals the JAX package's on signs, widths and
+    numbers longer than the width."""
+    for value in (0, 7, -7, 42, 12345, -100000):
+        for length in (0, 1, 3, 6):
+            assert zfill(value, length) == jax_zfill(value, length), (value, length)

@@ -45,6 +45,7 @@ CASES = {
     "forward_2x32": network_tests.jax_forward_2x32,
     "forward_6x64": network_tests.jax_forward_6x64,
     "forward_1x136": trunk_shapes_tests.jax_forward_1x136,
+    "forward_1x300": trunk_shapes_tests.jax_forward_1x300,
     "score_scan_interpret": score_scan_tests.jax_score_scan_interpret,
     "defensive_tables": threat_tests.jax_defensive_tables,
     "defensive_moves": threat_tests.jax_defensive_moves,
